@@ -1,0 +1,156 @@
+"""Build and load the port's CUDA kernels; the table of kernels and their
+launch counts.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``. Libraries are keyed by a hash of their source and flags and kept
+under ``build/torch_kernels/`` at the repository root, so a second run does
+not rebuild. Nothing is compiled at import time: the CPU tests import every
+module, and this machine may have no ``nvcc``.
+
+Every C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, does not synchronise, and returns
+``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("scatter", "window_attention", "ffn", "pixel_shuffle")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+@dataclass(frozen=True)
+class KernelInfo:
+    name: str  # wrapper function name, also the kernel's name in reports
+    module: str  # module of this package that holds the wrapper
+    source: str  # CUDA source, relative to the repository root
+    replaces: str  # the Pallas kernel it ports (file:line in the JAX package)
+
+
+KERNELS: Tuple[KernelInfo, ...] = (
+    KernelInfo("scatter_add_windows", "ops.scatter",
+               "hybrid_ctunet_tpu_torch/csrc/scatter.cu",
+               "hybrid_ctunet_tpu/ops/scatter_pallas.py:108"),
+    KernelInfo("window_attention", "ops.attention",
+               "hybrid_ctunet_tpu_torch/csrc/window_attention.cu",
+               "hybrid_ctunet_tpu/ops/attention_pallas.py:68"),
+    KernelInfo("ffn", "ops.ffn",
+               "hybrid_ctunet_tpu_torch/csrc/ffn.cu",
+               "hybrid_ctunet_tpu/ops/ffn_pallas.py:227"),
+    KernelInfo("ffn_pair", "ops.ffn",
+               "hybrid_ctunet_tpu_torch/csrc/ffn.cu",
+               "hybrid_ctunet_tpu/ops/ffn_pallas.py:153"),
+    KernelInfo("pixel_shuffle_linear", "ops.shuffle",
+               "hybrid_ctunet_tpu_torch/csrc/pixel_shuffle.cu",
+               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:111"),
+)
+
+
+def wrapper(info: KernelInfo):
+    mod = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.{info.module}")
+    return getattr(mod, info.name)
+
+
+def reset_launch_counts() -> None:
+    for info in KERNELS:
+        wrapper(info).launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {info.name: wrapper(info).launches for info in KERNELS}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME  # CUDA_HOME env or the default install
+
+    path = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if not CUDA_HOME or not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _compile(name: str) -> Path:
+    out = _lib_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    return out
+
+
+def build_all() -> float:
+    """Compile every source that has no library yet, in parallel; return the
+    seconds it took."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        for fut in [ex.submit(_compile, n) for n in SOURCES]:
+            fut.result()
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Every C
+    entry point returns ``int`` (a ``cudaError_t``)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(_compile(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def bind(name: str, fn: str, *argtypes) -> ctypes._CFuncPtr:
+    """Entry point ``fn`` of library ``name`` with its argument types set
+    (``ctypes.c_void_p`` for pointers and the stream)."""
+    key = (name, fn)
+    f = _FNS.get(key)
+    if f is None:
+        f = getattr(library(name), fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _FNS[key] = f
+    return f
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,277 @@
+"""Parameterized layers, channels-last NDHWC. Port of the plain-layout
+branches of ``hybrid_ctunet_tpu/models/layers.py``.
+
+Attribute names reproduce the reference PyTorch state-dict keys (MONAI
+``Convolution.conv``, ``Sequential`` indices), so a reference checkpoint or
+``utils.params.tunet_state_dict_from_jax`` loads with ``load_state_dict``.
+Params are fp32; ``dtype`` is the compute dtype each op casts them to, as
+the JAX modules do (``w.astype(self.dtype)``). Parameters are created empty
+on ``device``; ``utils.params.random_init_`` or ``load_state_dict`` fills
+them.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import attention as attention_ops
+from ..ops import ffn as ffn_ops
+from ..ops import shuffle as shuffle_ops
+from ..ops.act import leaky_relu
+from ..ops.conv import _triple, conv3d_same
+from ..ops.norm import instance_norm, instance_norm_leaky, layer_norm
+
+
+def _empty(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, dtype=torch.float32, device=device))
+
+
+class Dense(nn.Module):
+    """Linear in torch layout (``weight`` (out, in), ``bias`` (out)):
+    ``y = dtype(x @ w^T) + dtype(b)`` — fp32 accumulation rounded to the
+    compute dtype before the bias add, like the JAX Dense."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _empty(out_features, in_features, device=device)
+        self.bias = _empty(out_features, device=device) if bias else None
+
+    def forward(self, x):
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """Torch-parity LayerNorm (eps 1e-5, affine, fp32 internals); returns the
+    input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = _empty(dim, device=device)
+        self.bias = _empty(dim, device=device)
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Conv3dWeights(nn.Module):
+    """Holder of a Conv3d's ``weight`` (Cout, Cin, k, k, k) and optional
+    ``bias`` — the ``.conv`` of MONAI's Convolution."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, bias: bool, device=None):
+        super().__init__()
+        self.weight = _empty(cout, cin, *_triple(kernel_size), device=device)
+        self.bias = _empty(cout, device=device) if bias else None
+
+
+class Conv3d(nn.Module):
+    """SAME-padded 3D conv over NDHWC (bias optional; the reference's convs
+    are bias-free except the 1x1x1 output heads). Key: ``conv.weight``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size=3, stride=1, bias: bool = False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.stride = _triple(stride)
+        self.dtype = dtype
+        self.conv = Conv3dWeights(cin, cout, kernel_size, bias, device=device)
+
+    def forward(self, x):
+        y = conv3d_same(x.to(self.dtype), self.conv.weight.to(self.dtype), self.stride)
+        if self.conv.bias is not None:
+            y = y + self.conv.bias.to(self.dtype)
+        return y
+
+
+class FeedForward(nn.Module):
+    """LN -> Linear(mult*dim) -> GELU -> Linear(dim), optionally residual
+    (reference FeedForward, hybrid_CTUNet.py:513-526 / vit.py:31-44).
+    ``net`` indices follow the reference's Sequential: 0 LayerNorm, 1 Linear,
+    2 GELU, 3 Dropout, 4 Linear. In bf16 with hidden <= 1024 it goes
+    through ops.ffn (the fused kernel for CUDA tensors), elsewhere the plain
+    version."""
+
+    def __init__(self, dim: int, hidden: int, residual: bool = False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.residual = residual
+        self.net = nn.Sequential(
+            LayerNorm(dim, device=device),
+            Dense(dim, hidden, dtype=dtype, device=device),
+            nn.GELU(),
+            nn.Identity(),
+            Dense(hidden, dim, dtype=dtype, device=device),
+        )
+
+    def params(self) -> Tuple[torch.Tensor, ...]:
+        """(ln_w, ln_b, w1, b1, w2, b2) in torch layout."""
+        n = self.net
+        return (n[0].weight, n[0].bias, n[1].weight, n[1].bias, n[4].weight, n[4].bias)
+
+    def forward(self, x):
+        p = self.params()
+        if ffn_ops.supports(x.shape[-1], p[2].shape[0], self.dtype):
+            return ffn_ops.ffn(x, *p, self.dtype, residual=self.residual)
+        out = ffn_ops.reference_ffn(x, *p, self.dtype)
+        return x + out if self.residual else out
+
+
+class Residual(nn.Module):
+    """Holder with the reference's ``Residual.fn`` key; callers add x."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+
+class _Table(nn.Module):
+    """Holder of the ``rel_pos_bias.weight`` table (an nn.Embedding in the
+    reference)."""
+
+    def __init__(self, rows: int, cols: int, device=None):
+        super().__init__()
+        self.weight = _empty(rows, cols, device=device)
+
+
+def _rel_pos_indices(window: int) -> np.ndarray:
+    """3D relative-position index table for a (w,w,w) window, token order
+    (h, w, f) flattened — reference hybrid_CTUNet.py:472-479."""
+    pos = np.arange(window)
+    grid = np.stack(np.meshgrid(pos, pos, pos, indexing="ij"))  # (3, w, w, w)
+    grid = grid.reshape(3, -1).T  # (w^3, 3) in (h w f) order
+    rel = grid[:, None, :] - grid[None, :, :] + window - 1
+    strides = np.array([(2 * window - 1) ** 2, 2 * window - 1, 1])
+    return (rel * strides).sum(-1).astype(np.int64)  # (w^3, w^3)
+
+
+class MultiAxisWindowAttention(nn.Module):
+    """MaxViT-style windowed MHSA over w^3 windows with a 3D relative-position
+    bias (reference MultiAxisAttention, hybrid_CTUNet.py:442-511).
+
+    ``grid=False``: block attention over contiguous w^3 windows.
+    ``grid=True``: grid attention across windows at a fixed intra-window
+    offset (the reference's '(h1 h)' rearrange). The partition is plain
+    reshape/permute; the attention core is ops.attention (a kernel on CUDA
+    in bf16)."""
+
+    def __init__(self, dim: int, window: int = 6, grid: bool = False, dim_head: int = 32,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.window, self.grid, self.dim_head, self.dtype = window, grid, dim_head, dtype
+        self.heads = dim // dim_head
+        self.norm = LayerNorm(dim, device=device)
+        self.to_qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
+        self.rel_pos_bias = _Table((2 * window - 1) ** 3, self.heads, device=device)
+        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device))
+        idx = torch.from_numpy(_rel_pos_indices(window))
+        self.register_buffer("rel_pos_index", idx.to(device), persistent=False)
+
+    def forward(self, x):
+        B, X, Y, Z, C = x.shape
+        w = self.window
+        if X % w or Y % w or Z % w:
+            raise ValueError(f"spatial dims {(X, Y, Z)} must be divisible by window {w}")
+        nx, ny, nz = X // w, Y // w, Z // w
+        h = self.norm(x)
+        if not self.grid:
+            h = h.reshape(B, nx, w, ny, w, nz, w, C).permute(0, 1, 3, 5, 2, 4, 6, 7)
+        else:
+            h = h.reshape(B, w, nx, w, ny, w, nz, C).permute(0, 2, 4, 6, 1, 3, 5, 7)
+        T = w * w * w
+        h = h.reshape(B * nx * ny * nz, T, C)
+
+        qkv = self.to_qkv(h)
+        q, k, v = qkv.split(C, dim=-1)
+        bias = self.rel_pos_bias.weight[self.rel_pos_index].permute(2, 0, 1)  # (heads, T, T)
+        q = q * self.dim_head ** -0.5
+        if attention_ops.supports(T, C, self.heads, self.dtype):
+            out = attention_ops.window_attention(q, k, v, bias, self.dtype)
+        else:
+            out = attention_ops.reference_window_attention(q, k, v, bias, self.dtype)
+        out = self.to_out(out)
+
+        out = out.reshape(B, nx, ny, nz, w, w, w, C)
+        if not self.grid:
+            out = out.permute(0, 1, 4, 2, 5, 3, 6, 7)
+        else:
+            out = out.permute(0, 4, 1, 5, 2, 6, 3, 7)
+        return out.reshape(B, X, Y, Z, C)
+
+
+class PixelShuffleLinear(nn.Module):
+    """Anisotropic 3D pixel shuffle + per-voxel Linear (reference
+    PixelShuffle, hybrid_CTUNet.py:388-432): channels split as
+    (C', f0, f1, f2), C' slowest; then Linear(C' -> features). On CUDA in
+    bf16 it runs the fused kernel (ops.shuffle)."""
+
+    def __init__(self, dim: int, factor: Sequence[int], features: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.factor = tuple(int(f) for f in factor)
+        self.dtype = dtype
+        div = self.factor[0] * self.factor[1] * self.factor[2]
+        if dim % div:
+            raise ValueError(f"channels {dim} not divisible by prod(factor) {div}")
+        self.to_out = Dense(dim // div, features, dtype=dtype, device=device)
+
+    def forward(self, x):
+        w, b = self.to_out.weight, self.to_out.bias
+        if shuffle_ops.supports(x.shape[-1], self.factor, w.shape[0], self.dtype):
+            return shuffle_ops.pixel_shuffle_linear(x, w, b, self.factor, self.dtype)
+        return shuffle_ops.reference_shuffle(x, w, b, self.factor, self.dtype)
+
+
+class ResBlock(nn.Module):
+    """2-conv residual block with InstanceNorm/LeakyReLU(0.01) and a 1x1x1
+    projection shortcut when the shape changes (reference
+    hybrid_CTUNet.py:29-105). ``forward(x, skip)`` runs on
+    ``cat([x, skip], -1)``. The reference's conv3, dead when in == out and
+    stride 1, is not built."""
+
+    def __init__(self, cin: int, features: int, kernel_size=3, stride=1,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.needs_proj = cin != features or any(s != 1 for s in _triple(stride))
+        self.conv1 = Conv3d(cin, features, kernel_size, stride, dtype=dtype, device=device)
+        self.conv2 = Conv3d(features, features, kernel_size, 1, dtype=dtype, device=device)
+        if self.needs_proj:
+            self.conv3 = Conv3d(cin, features, 1, stride, dtype=dtype, device=device)
+
+    def forward(self, x, skip=None):
+        if skip is not None:
+            x = torch.cat([x, skip.to(x.dtype)], dim=-1)
+        out = instance_norm_leaky(self.conv1(x))
+        out = instance_norm(self.conv2(out))
+        residual = instance_norm(self.conv3(x)) if self.needs_proj else x
+        return leaky_relu(out + residual)
+
+
+class CatConvBlock(nn.Module):
+    """concat(x, skip) -> ResBlock (reference hybrid_CTUNet.py:593-620)."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv_block = ResBlock(cin, features, kernel_size, 1, dtype=dtype, device=device)
+
+    def forward(self, x, skip):
+        return self.conv_block(x, skip)
+
+
+class UnetOutHead(nn.Module):
+    """1x1x1 conv head with bias (MONAI UnetOutBlock; key ``conv.conv``)."""
+
+    def __init__(self, cin: int, features: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv = Conv3d(cin, features, 1, 1, bias=True, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.conv(x)

@@ -1,0 +1,57 @@
+"""3D convolution with MONAI "SAME" padding, channels-last in and out.
+Port of the plain branch of ``hybrid_ctunet_tpu/ops/conv.py:37-135``.
+
+The activation stays NDHWC at the function boundary; the conv runs on the
+NCDHW view of that memory, which is ``torch.channels_last_3d``, so cuDNN
+takes its channels-last path and no copy is made. The JAX package runs these
+convs on XLA, not on a kernel of its own, so cuDNN is the counterpart.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _triple(v) -> Tuple[int, int, int]:
+    if isinstance(v, int):
+        return (v, v, v)
+    t = tuple(int(x) for x in v)
+    if len(t) == 1:
+        return (t[0], t[0], t[0])
+    if len(t) != 3:
+        raise ValueError(f"expected 3 spatial dims, got {v}")
+    return t  # type: ignore[return-value]
+
+
+def same_padding(kernel_size, stride) -> Tuple[int, int, int]:
+    """MONAI's conv padding rule: ``(k - s + 1) // 2`` per axis."""
+    k, s = _triple(kernel_size), _triple(stride)
+    pads = []
+    for ki, si in zip(k, s):
+        p = (ki - si + 1) / 2
+        if p < 0:
+            raise ValueError(
+                f"negative SAME padding for kernel={ki}, stride={si}; "
+                "change the kernel size and/or stride"
+            )
+        pads.append(int(p))
+    return tuple(pads)  # type: ignore[return-value]
+
+
+def conv3d_same(
+    x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] | int = 1
+) -> torch.Tensor:
+    """Channels-last 3D conv with the reference SAME-padding rule.
+
+    x: (B, X, Y, Z, Cin); w: (Cout, Cin, kx, ky, kz), torch's Conv3d layout
+    (the JAX function takes DHWIO). Output (B, X', Y', Z', Cout) in x's dtype
+    with X' = floor((X + 2p - k)/s) + 1, p = (k - s + 1)//2.
+    """
+    s = _triple(stride)
+    p = same_padding(tuple(w.shape[2:]), s)
+    xc = x.permute(0, 4, 1, 2, 3)
+    wc = w.contiguous(memory_format=torch.channels_last_3d)
+    y = F.conv3d(xc, wc, stride=s, padding=p)
+    return y.permute(0, 2, 3, 4, 1)

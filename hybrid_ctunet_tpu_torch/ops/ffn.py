@@ -1,0 +1,122 @@
+"""Transformer FeedForward: LN -> fc1 -> erf-GELU -> fc2 (kernel modules K3
+and K4). Port of ``hybrid_ctunet_tpu/ops/ffn_pallas.py``.
+
+Weights are in torch's Linear layout: ``w1`` (H, C), ``w2`` (C, H). Rounding
+points (the JAX ``reference_ffn``): fp32 LN (eps 1e-5) rounded to x's dtype;
+each matmul sums in fp32 and is rounded to the compute dtype before its
+bias, cast to the compute dtype, is added; GELU runs on the rounded value.
+``F.linear(x, w, b)`` would add the bias before rounding, so it is not used.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from .. import kernels
+from .act import gelu_exact
+from .norm import layer_norm
+
+_HC = 64  # csrc/ffn.cu HC: hidden chunk
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """x @ w^T in ``dtype``, fp32 accumulation, one rounding."""
+    return torch.matmul(x.to(dtype), w.to(dtype).t())
+
+
+def reference_ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype):
+    """Plain version: FFN(x) without the residual."""
+    y = layer_norm(x, ln_w, ln_b)
+    h = _linear(y, w1, dtype) + b1.to(dtype)
+    h = gelu_exact(h)
+    return _linear(h, w2, dtype) + b2.to(dtype)
+
+
+def reference_ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
+    """Plain version of the pair: y = x + FFN1(x); z = y + FFN2(y)."""
+    y = x + reference_ffn(x, *params1, dtype)
+    return y + reference_ffn(y, *params2, dtype)
+
+
+def supports(c: int, hidden: int, dtype) -> bool:
+    """Where the kernel engages, as in the JAX package: bf16 pyramid FFNs with
+    hidden <= 1024 (C 256 at stage 2, 128 at stage 3). The ViT FFN and stages
+    0-1 stay plain."""
+    return dtype == torch.bfloat16 and c in (128, 256) and hidden <= 1024 and hidden % _HC == 0
+
+
+def _kernel_params(params, c: int, hidden: int, dtype):
+    ln_w, ln_b, w1, b1, w2, b2 = params
+    if tuple(w1.shape) != (hidden, c) or tuple(w2.shape) != (c, hidden):
+        raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} do not match C={c}")
+    f32 = lambda t: t.float().contiguous()
+    cast = lambda t: t.to(dtype).contiguous()
+    return [f32(ln_w), f32(ln_b), cast(w1), cast(b1), cast(w2), cast(b2)]
+
+
+def _prepare(x, params_list, dtype):
+    if x.dtype != dtype:
+        raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
+    c = x.shape[-1]
+    hidden = params_list[0][2].shape[0]
+    if not supports(c, hidden, dtype):
+        raise ValueError(f"ffn kernel: unsupported C={c} hidden={hidden} {dtype}")
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for p in params_list for t in p)
+    ):
+        raise RuntimeError("the ffn kernels have no backward")
+    x2d = x.reshape(-1, c).contiguous()
+    prepared = [_kernel_params(p, c, hidden, dtype) for p in params_list]
+    for p in prepared:
+        if any(not t.is_cuda or t.device != x.device for t in p):
+            raise ValueError("ffn parameters must be on the input's CUDA device")
+    return x2d, c, hidden, prepared
+
+
+def ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype, residual: bool = False):
+    """x (..., C) -> FFN(x), or x + FFN(x) with ``residual``. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/ffn.cu``."""
+    if not x.is_cuda:
+        out = reference_ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype)
+        return x + out if residual else out
+    x2d, c, hidden, (p,) = _prepare(x, [(ln_w, ln_b, w1, b1, w2, b2)], dtype)
+    out = torch.empty_like(x2d)
+    fn = kernels.bind(
+        "ffn", "ffn", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7,
+    )
+    err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden, int(residual),
+             *[t.data_ptr() for t in p], kernels.stream_ptr(x.device))
+    kernels.check(err, "ffn")
+    ffn.launches += 1
+    return out.reshape(x.shape)
+
+
+ffn.launches = 0
+
+
+def ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
+    """``z = y + FFN2(y)`` with ``y = x + FFN1(x)``; ``params*`` are
+    ``(ln_w, ln_b, w1, b1, w2, b2)``. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/ffn.cu`` with y kept on chip."""
+    if not x.is_cuda:
+        return reference_ffn_pair(x, params1, params2, dtype)
+    x2d, c, hidden, (p1, p2) = _prepare(x, [tuple(params1), tuple(params2)], dtype)
+    if p2[2].shape[0] != hidden:
+        raise ValueError("both FFNs of the pair must have the same hidden width")
+    out = torch.empty_like(x2d)
+    fn = kernels.bind(
+        "ffn", "ffn_pair", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, *[ctypes.c_void_p] * 13,
+    )
+    err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden,
+             *[t.data_ptr() for t in p1], *[t.data_ptr() for t in p2],
+             kernels.stream_ptr(x.device))
+    kernels.check(err, "ffn_pair")
+    ffn_pair.launches += 1
+    return out.reshape(x.shape)
+
+
+ffn_pair.launches = 0

@@ -1,0 +1,159 @@
+"""Weights across the two packages, and seeded random init.
+
+The port's modules carry the reference PyTorch state-dict keys, so
+``hybrid_ctunet_tpu.utils.torch_import.convert_tunet`` of a port
+``state_dict()`` (as numpy) is the JAX parameter tree.
+:func:`tunet_state_dict_from_jax` is its inverse, in numpy, without jax:
+
+  Linear  kernel (in, out)               -> weight (out, in)
+  Conv3d  kernel (k0, k1, k2, Cin, Cout) -> weight (Cout, Cin, k0, k1, k2)
+  LayerNorm scale/bias                   -> weight/bias
+  ViT blocks stacked on a leading depth axis (``vit/blocks``, the JAX
+  package's nn.scan layout) or ``vit/block{i}``  -> ``vit.transformer.{i}``
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _lin(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _conv(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (4, 3, 0, 1, 2)))
+
+
+class _Out:
+    def __init__(self):
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def put(self, key, value):
+        if key in self.sd:
+            raise KeyError(f"duplicate key {key}")
+        self.sd[key] = np.array(value, dtype=np.float32)  # an owned, writable copy
+
+    def ln(self, dst, node):
+        self.put(f"{dst}.weight", node["scale"])
+        self.put(f"{dst}.bias", node["bias"])
+
+    def dense(self, dst, node):
+        self.put(f"{dst}.weight", _lin(node["kernel"]))
+        if "bias" in node:
+            self.put(f"{dst}.bias", node["bias"])
+
+    def conv(self, dst, node):
+        self.put(f"{dst}.weight", _conv(node["kernel"]))
+        if "bias" in node:
+            self.put(f"{dst}.bias", node["bias"])
+
+    def ffn(self, dst, node):
+        self.ln(f"{dst}.net.0", node["norm"])
+        self.dense(f"{dst}.net.1", node["fc1"])
+        self.dense(f"{dst}.net.4", node["fc2"])
+
+    def window_attn(self, dst, node):
+        self.ln(f"{dst}.norm", node["norm"])
+        self.dense(f"{dst}.to_qkv", node["to_qkv"])
+        self.put(f"{dst}.rel_pos_bias.weight", node["rel_pos_bias"])
+        self.dense(f"{dst}.to_out.0", node["to_out"])
+
+    def resblock(self, dst, node):
+        for name in ("conv1", "conv2", "conv3"):
+            if name in node:
+                self.conv(f"{dst}.{name}.conv", node[name])
+
+
+def _index_tree(node, i):
+    if isinstance(node, Mapping):
+        return {k: _index_tree(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def tunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX TUNet parameter tree (``{"params": {"core": ...}}`` or the inner
+    ``{"core": ...}``, leaves array-like) -> reference/port state dict of
+    float32 numpy arrays."""
+    if "params" in tree:
+        tree = tree["params"]
+    core = tree["core"]
+    out = _Out()
+
+    vit = core["vit"]
+    out.ln("vit.to_patch_embedding.1", vit["patch_norm1"])
+    out.dense("vit.to_patch_embedding.2", vit["patch_proj"])
+    out.ln("vit.to_patch_embedding.3", vit["patch_norm2"])
+    out.put("vit.pos_embedding", vit["pos_embedding"])
+    if "blocks" in vit:
+        depth = np.asarray(vit["blocks"]["attn"]["norm"]["scale"]).shape[0]
+        blocks = [_index_tree(vit["blocks"], i) for i in range(depth)]
+    else:
+        blocks = [vit[f"block{i}"] for i in range(sum(k.startswith("block") for k in vit))]
+    for i, b in enumerate(blocks):
+        dst = f"vit.transformer.{i}"
+        out.ln(f"{dst}.attn.norm", b["attn"]["norm"])
+        out.dense(f"{dst}.attn.to_qkv", b["attn"]["to_qkv"])
+        if "to_out" in b["attn"]:
+            out.dense(f"{dst}.attn.to_out.0", b["attn"]["to_out"])
+        out.ffn(f"{dst}.ff", b["ff"])
+
+    enc = core["vit_encoder"]
+    for ind in range(4):
+        base = f"vit_encoder.layers.{ind}.0"
+        if ind <= 2:
+            out.window_attn(f"{base}.1.fn", enc[f"stage{ind}_block_attn"])
+            out.ffn(f"{base}.2.fn", enc[f"stage{ind}_block_ff"])
+            out.window_attn(f"{base}.5.fn", enc[f"stage{ind}_grid_attn"])
+            out.ffn(f"{base}.6.fn", enc[f"stage{ind}_grid_ff"])
+            shuffle = f"{base}.8"
+        else:
+            out.ffn(f"{base}.1.fn", enc[f"stage{ind}_ff1"])
+            out.ffn(f"{base}.2.fn", enc[f"stage{ind}_ff2"])
+            shuffle = f"{base}.4"
+        out.dense(f"{shuffle}.to_out", enc[f"stage{ind}_shuffle"]["to_out"])
+
+    out.resblock("vit_encoder0.layer", core["vit_encoder0"])
+    out.resblock("vit_decoder0.conv_block", core["vit_decoder0"]["conv_block"])
+    out.dense("decoder_linear_96x96.head", core["decoder_linear_96x96"])
+    out.conv("vit_out.conv.conv", core["vit_out"]["conv"])
+    return out.sd
+
+
+def load_numpy_state_dict(model: nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+    """``load_state_dict(strict=True)`` from numpy arrays onto the model's
+    device (params stay fp32)."""
+    device = next(model.parameters()).device
+    model.load_state_dict(
+        {k: torch.from_numpy(np.asarray(v, np.float32)).to(device) for k, v in sd.items()},
+        strict=True,
+    )
+
+
+@torch.no_grad()
+def random_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter from ``seed`` with the JAX package's init
+    distributions: Linear weights N(0, 1/fan_in), conv weights
+    N(0, 2/fan_in), LayerNorm scale 1, biases 0, position embedding and
+    relative-position tables N(0, 1). Draws on the parameters' device."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("pos_embedding") or name.endswith("rel_pos_bias.weight"):
+            p.normal_(0.0, 1.0, generator=gen)
+        elif name.endswith(".bias"):
+            p.zero_()
+        elif p.ndim == 1:  # LayerNorm scale
+            p.fill_(1.0)
+        elif p.ndim == 5:  # conv (Cout, Cin, k, k, k)
+            p.normal_(0.0, math.sqrt(2.0 / (p[0].numel())), generator=gen)
+        elif p.ndim == 2:  # Linear (out, in)
+            p.normal_(0.0, math.sqrt(1.0 / p.shape[1]), generator=gen)
+        else:
+            raise ValueError(f"no init rule for {name} {tuple(p.shape)}")
+    return model

@@ -1,0 +1,92 @@
+"""CUDA kernels of the port against their plain versions, at small shapes.
+Marked ``cuda``: they need a card and skip without one (run them on a GPU
+machine with ``python -m pytest tests/test_torch_cuda.py -q``). The full
+main-path shapes are checked by ``chip_smoke.py``."""
+import numpy as np
+import pytest
+import torch
+
+from hybrid_ctunet_tpu_torch.ops import attention, ffn, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
+
+pytestmark = pytest.mark.cuda
+BF = torch.bfloat16
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, *shape, dtype=torch.float32, std=1.0, dev=None):
+    return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def _bf16_close(got, want):
+    """Same bound as chip_smoke.py: summation order differs inside the
+    matmuls, so values may sit a bf16 ulp or two apart."""
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() <= 2.0 ** -5 * want.float().abs().max().item()
+    assert (d.norm() / want.float().norm()).item() <= 1e-2
+
+
+def test_scatter_bit_exact(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    imp = torch.tensor(gaussian_importance_map((20, 16, 12)), device=dev)
+    pred = _randn(gen, 3, 20, 16, 12, 5, dtype=BF, dev=dev)
+    acc = _randn(gen, 41, 30, 29, 6, dev=dev)
+    starts = np.array([[0, 0, 0], [6, 2, 17], [21, 14, 9]], np.int32)
+    got = scatter.scatter_add_windows(acc.clone(), pred, imp, starts)
+    want = scatter.reference_scatter_add_windows(acc.clone(), pred, imp, starts)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t", [216, 27, 8])
+def test_window_attention(dev, t):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qkv = _randn(gen, 7, t, 3 * 64, dtype=BF, dev=dev)
+    q, k, v = qkv[..., :64] * 32 ** -0.5, qkv[..., 64:128], qkv[..., 128:]
+    bias = _randn(gen, 2, t, t, dev=dev)
+    _bf16_close(attention.window_attention(q, k, v, bias, BF),
+                attention.reference_window_attention(q, k, v, bias, BF))
+
+
+def _ffn_params(gen, c, h, dev):
+    return (1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
+            _randn(gen, h, c, std=c ** -0.5, dev=dev), _randn(gen, h, std=0.1, dev=dev),
+            _randn(gen, c, h, std=h ** -0.5, dev=dev), _randn(gen, c, std=0.1, dev=dev))
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_ffn(dev, c):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = _randn(gen, 3, 5, 7, c, dtype=BF, dev=dev)  # 105 rows: a ragged tile
+    p = _ffn_params(gen, c, 4 * c, dev)
+    _bf16_close(ffn.ffn(x, *p, BF, residual=True), x + ffn.reference_ffn(x, *p, BF))
+    _bf16_close(ffn.ffn(x, *p, BF), ffn.reference_ffn(x, *p, BF))
+
+
+def test_ffn_pair(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = _randn(gen, 2, 9, 11, 128, dtype=BF, dev=dev)
+    p1, p2 = _ffn_params(gen, 128, 512, dev), _ffn_params(gen, 128, 512, dev)
+    _bf16_close(ffn.ffn_pair(x, p1, p2, BF), ffn.reference_ffn_pair(x, p1, p2, BF))
+
+
+@pytest.mark.parametrize("factor,c,f", [((2, 2, 2), 256, 128), ((2, 2, 1), 128, 64)])
+def test_pixel_shuffle(dev, factor, c, f):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _randn(gen, 2, 3, 5, 7, c, dtype=BF, dev=dev)
+    cp = c // int(np.prod(factor))
+    w, b = _randn(gen, f, cp, std=cp ** -0.5, dev=dev), _randn(gen, f, std=0.1, dev=dev)
+    _bf16_close(shuffle.pixel_shuffle_linear(x, w, b, factor, BF),
+                shuffle.reference_shuffle(x, w, b, factor, BF))
+
+
+def test_wrappers_raise_on_unsupported(dev):
+    x = torch.zeros(2, 64, device=dev, dtype=BF)
+    p = [torch.zeros(s, device=dev) for s in (64, 64, (256, 64), 256, (64, 256), 64)]
+    with pytest.raises(ValueError):
+        ffn.ffn(x, *p, BF)  # C = 64 has no kernel instance

@@ -1,0 +1,39 @@
+"""The port loads no JAX: a fresh interpreter imports every module of
+``hybrid_ctunet_tpu_torch`` and runs the TINY slice (TUNet sliding-window
+inference through cli/bench.py's functions), then checks sys.modules."""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import torch
+    import hybrid_ctunet_tpu_torch as pkg
+
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    model = bench.build_tunet(0, "cpu", dtype=torch.float32, out_channels=3,
+                              dim_conv_stem=16, img_size=(32, 32), frames=32,
+                              hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2,
+                              window=2)
+    engine = bench.make_engine(model, roi=(32, 32, 32), sw=2)
+    logits, mask = bench.segment(engine, bench.make_volume(0, (40, 36, 33), "cpu"))
+    assert tuple(logits.shape) == (1, 40, 36, 33, 3), logits.shape
+    assert torch.isfinite(logits).all() and tuple(mask.shape) == (1, 40, 36, 33)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    print(len(names), "modules;", "loaded:", loaded)
+    assert not loaded, loaded
+""")
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "loaded: []" in proc.stdout

@@ -1,0 +1,178 @@
+"""Each kernel module of the port (plain versions, as a CPU tensor takes them)
+against the JAX package's function on the same inputs.
+
+The JAX functions run as the JAX tests run them on CPU: their Pallas gates
+need a TPU, so they take the plain reference paths. The CUDA kernels
+themselves are compared with these plain versions on the card by
+``chip_smoke.py``.
+
+Tolerances: fp32 1e-5. bf16 results are compared in float32; the two
+frameworks round at the same points, but sum in a different order inside the
+matmuls, so a value may land one bf16 ulp apart (2^-8 relative, 2^-7 at the
+bottom of a binade), and a flipped intermediate moves the next product:
+rtol 2^-6 plus an atol of 2^-6 of the output's max magnitude.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hybrid_ctunet_tpu.infer.sliding_window import dense_patch_starts, get_scan_interval
+from hybrid_ctunet_tpu.models import layers as j_layers
+from hybrid_ctunet_tpu.ops import attention_pallas, ffn_pallas, scatter_pallas, shuffle_pallas
+from hybrid_ctunet_tpu_torch.models import layers
+from hybrid_ctunet_tpu_torch.ops import attention, ffn, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
+from hybrid_ctunet_tpu_torch.utils.params import _Out
+
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _close(got, want, dt):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape
+    if dt == "fp32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        tol = 2.0 ** -6
+        np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max(), rtol=tol)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("n,t,heads", [(5, 27, 2), (3, 216, 1)])
+def test_window_attention_core(rng, dt, n, t, heads):
+    jdt, tdt = DTYPES[dt]
+    c = heads * 32
+    q, k, v = (rng.standard_normal((n, t, c)).astype(np.float32) for _ in range(3))
+    q *= 32 ** -0.5
+    bias = rng.standard_normal((heads, t, t)).astype(np.float32)
+    want = attention_pallas.reference_window_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias), jdt)
+    got = attention.window_attention(*(_t(a, tdt) for a in (q, k, v)), _t(bias), tdt)
+    assert got.dtype == tdt
+    _close(got, want, dt)
+
+
+def _window_attn_sd(p):
+    out = _Out()
+    out.window_attn("m", p)
+    return {k[2:]: v for k, v in out.sd.items()}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("grid", [False, True])
+def test_window_attention_layer(rng, dt, grid):
+    """Block and grid partitions around the core; 2*2*3 = 12 windows of 2^3."""
+    jdt, tdt = DTYPES[dt]
+    x = rng.standard_normal((1, 4, 4, 6, 64)).astype(np.float32)
+    jm = j_layers.MultiAxisWindowAttention(window=2, grid=grid, dtype=jdt)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x, jdt))["params"]
+    want = jm.apply({"params": params}, jnp.asarray(x, jdt))
+    tm = layers.MultiAxisWindowAttention(64, window=2, grid=grid, dtype=tdt)
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in _window_attn_sd(params).items()})
+    with torch.inference_mode():
+        got = tm(_t(x, tdt))
+    _close(got, want, dt)
+
+
+def _ffn_params(rng, c, h):
+    return (1 + 0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c),
+            rng.standard_normal((c, h)) / np.sqrt(c), 0.1 * rng.standard_normal(h),
+            rng.standard_normal((h, c)) / np.sqrt(h), 0.1 * rng.standard_normal(c))
+
+
+def _torch_ffn_params(p):
+    """JAX layout (kernels (in, out)) -> torch Linear layout, fp32 tensors."""
+    ln_w, ln_b, w1, b1, w2, b2 = p
+    return (_t(ln_w), _t(ln_b), _t(np.asarray(w1).T), _t(b1), _t(np.asarray(w2).T), _t(b2))
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_ffn(rng, dt, residual):
+    jdt, tdt = DTYPES[dt]
+    x = rng.standard_normal((2, 3, 4, 5, 128)).astype(np.float32)
+    p = _ffn_params(rng, 128, 512)
+    jx = jnp.asarray(x, jdt)
+    want = ffn_pallas.reference_ffn(jx, *(jnp.asarray(a, jnp.float32) for a in p), jdt)
+    if residual:
+        want = jx + want
+    got = ffn.ffn(_t(x, tdt), *_torch_ffn_params(p), tdt, residual=residual)
+    assert got.dtype == tdt
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_ffn_pair(rng, dt):
+    """The pair against the JAX decoder's two residual FFNs (the path its
+    stage 3 takes off the TPU)."""
+    jdt, tdt = DTYPES[dt]
+    x = rng.standard_normal((1, 4, 4, 6, 128)).astype(np.float32)
+    p1, p2 = _ffn_params(rng, 128, 512), _ffn_params(rng, 128, 512)
+    jx = jnp.asarray(x, jdt)
+    y = jx + ffn_pallas.reference_ffn(jx, *(jnp.asarray(a, jnp.float32) for a in p1), jdt)
+    want = y + ffn_pallas.reference_ffn(y, *(jnp.asarray(a, jnp.float32) for a in p2), jdt)
+    got = ffn.ffn_pair(_t(x, tdt), _torch_ffn_params(p1), _torch_ffn_params(p2), tdt)
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("factor,c,f", [((2, 2, 2), 64, 32), ((2, 2, 1), 128, 64)])
+def test_pixel_shuffle(rng, dt, factor, c, f):
+    jdt, tdt = DTYPES[dt]
+    x = rng.standard_normal((2, 3, 4, 5, c)).astype(np.float32)
+    cp = c // int(np.prod(factor))
+    w = rng.standard_normal((cp, f)).astype(np.float32) / np.sqrt(cp)
+    b = rng.standard_normal(f).astype(np.float32)
+    want = shuffle_pallas.reference_shuffle(
+        jnp.asarray(x, jdt), jnp.asarray(w), jnp.asarray(b), factor, jdt)
+    got = shuffle.pixel_shuffle_linear(_t(x, tdt), _t(w.T), _t(b), factor, tdt)
+    assert got.shape == (2, 3 * factor[0], 4 * factor[1], 5 * factor[2], f)
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("pred_dtype", ["fp32", "bf16"])
+def test_scatter_bit_exact(rng, pred_dtype):
+    """Unaligned window starts (overlap 0.7: interval int(20*0.3) = 6) into a
+    (46, 33, 29) canvas, against the JAX package's XLA scatter on its
+    merged-lane canvas (K = C+1 lanes, count map in lane C). Both multiply
+    importance * prediction once and add windows in order: bit-exact."""
+    C, roi = 3, (20, 16, 12)
+    size = (46, 33, 29)
+    starts = dense_patch_starts(size, roi, get_scan_interval(size, roi, 0.7))
+    sel = starts[[1, 2, 9, 10, 11, 40]]
+    imp = gaussian_importance_map(roi)
+    pred = rng.standard_normal((len(sel), *roi, C)).astype(np.float32)
+    if pred_dtype == "bf16":
+        pred = np.asarray(jnp.asarray(pred, jnp.bfloat16).astype(jnp.float32))
+    acc0 = rng.standard_normal((*size, C + 1)).astype(np.float32)
+
+    contrib = np.concatenate(
+        [imp[None, ..., None] * pred, np.broadcast_to(imp[None, ..., None], (len(sel), *roi, 1))],
+        axis=-1,
+    ).reshape(len(sel), roi[0], roi[1], roi[2] * (C + 1))
+    s_scaled = sel * np.array([1, 1, C + 1], np.int32)
+    want = scatter_pallas.scatter_add_windows(
+        jnp.asarray(acc0.reshape(size[0], size[1], -1)), jnp.asarray(contrib),
+        jnp.asarray(s_scaled), use_pallas=False,
+    )
+    want = np.asarray(want).reshape(*size, C + 1)
+
+    tdt = DTYPES[pred_dtype][1]
+    acc = torch.from_numpy(acc0.copy())
+    out = scatter.scatter_add_windows(acc, _t(pred, tdt), torch.from_numpy(imp.copy()), sel)
+    assert out is acc  # in place
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+def test_scatter_rejects_window_outside_canvas():
+    acc = torch.zeros(10, 10, 10, 2)
+    with pytest.raises(ValueError):
+        scatter.scatter_add_windows(acc, torch.zeros(1, 4, 4, 4, 1), torch.ones(4, 4, 4),
+                                    [[0, 0, 7]])
