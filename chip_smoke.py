@@ -8,16 +8,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: ``nvidia-smi`` name and power limit, torch and CUDA versions, the
    TF32 / reduced-precision flags (set off, and printed).
 2. Build every kernel of the path from ``hybrid_ctunet_tpu_torch/csrc`` with
-   nvcc (seconds printed).
+   nvcc, all sources in parallel (seconds printed).
 3. Each kernel against its plain PyTorch version at the main path's shapes
    (K1 scatter must be bit-exact; the bf16 kernels must meet the stated
-   tolerance), with CUDA-event times of both (median of several runs).
-4. The slice: full-width TUNet (109,904,124 params, random weights from a
-   seed, bf16) through ``cli/bench.py``'s functions — sliding-window
-   inference over one 256x256x128 volume at overlap 0.7 (147 windows,
-   sw_batch 4), with every kernel launch counted; then 2 timed volumes.
-   One 4-window batch of the model is also run with the kernels and with
-   their plain versions, and the two outputs compared.
+   tolerance), with CUDA-event times per 4-window chunk of the kernel, its
+   plain version and, where one PyTorch call computes the same function,
+   that call (median of several runs); and each kernel's bound, the least
+   time an H100 could take for the same bytes and operations.
+4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
+   a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
+   at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
+   equal to the count the module tree implies; 2 timed volumes; one 4-window
+   batch with every kernel call held to its plain version on the model's
+   activations, and the output against the same model on plain versions.
+5. The main path, the Hybrid-CTUNet ensemble: full-width CTUNet (ResNet-101,
+   pf 8, 174,109,542 params, res head only, overlap 0.5, 50 windows) and the
+   TUNet, softmax-mean and argmax over the same volume; launch counts per
+   volume equal to the module tree's for all eight kernels; 2 timed
+   volumes; one 4-window CTUNet batch checked as the TUNet one (every gate
+   off for the plain run); one 4-window batch of full-width CUNet
+   (50,779,754 params).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -25,9 +35,9 @@ script exits with an error and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -36,10 +46,16 @@ import time
 # any rounding point, and a flipped intermediate moves the next product.
 BF16_MAX_ABS_FRACTION = 2.0 ** -5  # max |kernel - plain| <= this * max |plain|
 BF16_REL_L2 = 1e-2
-# the whole bf16 model with kernels against the same model on plain
-# versions: the per-op differences above, carried through ~40 layers
+# the whole bf16 TUNet with kernels against the same model on plain versions:
+# the per-op differences above, carried through ~40 layers. (The random-weight
+# CTUNet is chaotic, see model_check.)
 MODEL_REL_L2 = 5e-2
 SEED = 0
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 bytes/s
+# and bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+CHUNK = 4  # windows per chunk (sw_batch_size)
 
 
 def log(*a):
@@ -85,23 +101,77 @@ def check_bf16(name, got, want):
     return max_abs
 
 
+class Tally:
+    """One kernel's row: worst error, and per chunk the kernel, plain and
+    library times and the bound, each summed over the chunk's calls. A
+    call's bound is max(bytes / HBM rate, FLOP / bf16 rate), bytes counting
+    each input read once and each output written once."""
+
+    def __init__(self, library: bool):
+        self.err = 0.0
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.library_ms = 0.0 if library else None
+        self.by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, err, n, ms, plain_ms, nbytes, flops, library_ms=None):
+        """``n`` calls per chunk of one shape."""
+        self.err = max(self.err, err)
+        self.ms += n * ms
+        self.plain_ms += n * plain_ms
+        if self.library_ms is not None:
+            self.library_ms += n * library_ms
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        self.bound_ms += n * max(t_bytes, t_ops)
+        self.by["bytes" if t_bytes >= t_ops else "operations"] += n * max(t_bytes, t_ops)
+
+    def row(self):
+        return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms, "bound_by": max(self.by, key=self.by.get),
+                "library_ms": self.library_ms}
+
+
+def record_norm_sites(model, x, **kw):
+    """(shape, act) -> calls of the conv-path InstanceNorm in one forward of
+    ``model`` on ``x`` (meta tensors: shapes only, nothing computed)."""
+    from hybrid_ctunet_tpu_torch.models import layers, resnet3d
+
+    sites = collections.Counter()
+    orig = layers.instance_norm_act
+
+    def rec(t, act=False):
+        sites[(tuple(t.shape), act)] += 1
+        return orig(t, act)
+
+    layers.instance_norm_act = resnet3d.instance_norm_act = rec
+    try:
+        model(x, **kw)
+    finally:
+        layers.instance_norm_act = resnet3d.instance_norm_act = orig
+    return sites
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at the main path's shapes.
-    Returns {kernel: (max_abs_err, ms per chunk, plain ms per chunk)}."""
+    Returns {kernel: Tally row} with times per 4-window chunk."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from hybrid_ctunet_tpu_torch.cli import bench
     from hybrid_ctunet_tpu_torch.infer.sliding_window import SlidingWindowEngine
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, scatter, shuffle
+    from hybrid_ctunet_tpu_torch.models import CTUNet
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatter, shuffle
     from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     bf = torch.bfloat16
 
-    def randn(*shape, dtype=torch.float32, std=1.0):
-        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    def randn(*shape, dtype=torch.float32, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * std + mean).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
 
     results = {}
 
@@ -111,7 +181,7 @@ def phase_kernels(device):
     _, _, _, starts = planner.plan(bench.VOLUME_SHAPE)
     chunk = starts[4:8]
     imp = torch.tensor(gaussian_importance_map(bench.ROI), device=device)
-    pred = randn(4, *bench.ROI, bench.OUT_CHANNELS, dtype=bf)
+    pred = randn(CHUNK, *bench.ROI, bench.OUT_CHANNELS, dtype=bf)
     acc0 = randn(*bench.VOLUME_SHAPE, bench.OUT_CHANNELS + 1)
     got = scatter.scatter_add_windows(acc0.clone(), pred, imp, chunk)
     want = scatter.reference_scatter_add_windows(acc0.clone(), pred, imp, chunk)
@@ -124,13 +194,20 @@ def phase_kernels(device):
     acc = acc0.clone()
     ms = cuda_time_ms(lambda: scatter.scatter_add_windows(acc, pred, imp, chunk))
     plain = cuda_time_ms(lambda: scatter.reference_scatter_add_windows(acc, pred, imp, chunk))
+    covered = np.zeros(bench.VOLUME_SHAPE, bool)  # the canvas the windows read and write
+    for x0, y0, z0 in chunk.tolist():
+        covered[x0:x0 + bench.ROI[0], y0:y0 + bench.ROI[1], z0:z0 + bench.ROI[2]] = True
+    canvas_bytes = int(covered.sum()) * (bench.OUT_CHANNELS + 1) * 4
     log(f"  scatter_add_windows: {ms!r} ms, plain {plain!r} ms")
-    results["scatter_add_windows"] = (max_abs, ms, plain)
+    t = Tally(library=False)
+    t.add(max_abs, 1, ms, plain, nbytes(pred, imp) + 2 * canvas_bytes, 2 * pred.numel())
+    results["scatter_add_windows"] = t.row()
     del acc, acc0, got, want, pred
 
     # K2: window attention at pyramid stages 0-2 (block and grid calls share
-    # shapes: 2 calls per stage per chunk)
-    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    # shapes: 2 calls per stage per chunk); library: SDPA with the bias as an
+    # additive bf16 mask, q pre-scaled
+    t = Tally(library=True)
     for stage, (nwin, C) in enumerate(((8, 768), (64, 512), (512, 256))):
         heads, T = C // 32, 216
         qkv = randn(nwin, T, 3 * C, dtype=bf)
@@ -139,19 +216,23 @@ def phase_kernels(device):
         bias = randn(heads, T, T)
         got = attention.window_attention(q, k, v, bias, bf)
         want = attention.reference_window_attention(q, k, v, bias, bf)
-        worst = max(worst, check_bf16(f"window_attention stage {stage} ({nwin}x{T}x{C})", got, want))
+        err = check_bf16(f"window_attention stage {stage} ({nwin}x{T}x{C})", got, want)
         ms = cuda_time_ms(lambda: attention.window_attention(q, k, v, bias, bf))
         plain = cuda_time_ms(lambda: attention.reference_window_attention(q, k, v, bias, bf))
-        log(f"  window_attention stage {stage}: {ms!r} ms, plain {plain!r} ms")
-        ms_sum, plain_sum = ms_sum + 2 * ms, plain_sum + 2 * plain
-    results["window_attention"] = (worst, ms_sum, plain_sum)
+        qh, kh, vh = (a.reshape(nwin, T, heads, 32).transpose(1, 2) for a in (q, k, v))
+        mask = bias.to(bf)[None]
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                  scale=1.0))
+        log(f"  window_attention stage {stage}: {ms!r} ms, plain {plain!r} ms, sdpa {lib!r} ms")
+        t.add(err, 2, ms, plain, nbytes(q, k, v, bias, got), 4 * nwin * T * T * C, lib)
+    results["window_attention"] = t.row()
 
     def ffn_params(c, h):
         return (1.0 + randn(c, std=0.1), randn(c, std=0.1), randn(h, c, std=c ** -0.5),
                 randn(h, std=0.1), randn(c, h, std=h ** -0.5), randn(c, std=0.1))
 
     # K3: stage-2 FFN, residual, 2 calls per chunk
-    x = randn(4, 24, 24, 48, 256, dtype=bf)
+    x = randn(CHUNK, 24, 24, 48, 256, dtype=bf)
     p = ffn_params(256, 1024)
     got = ffn.ffn(x, *p, bf, residual=True)
     want = x + ffn.reference_ffn(x, *p, bf)
@@ -159,10 +240,14 @@ def phase_kernels(device):
     ms = cuda_time_ms(lambda: ffn.ffn(x, *p, bf, residual=True))
     plain = cuda_time_ms(lambda: x + ffn.reference_ffn(x, *p, bf))
     log(f"  ffn: {ms!r} ms, plain {plain!r} ms")
-    results["ffn"] = (err, 2 * ms, 2 * plain)
+    t = Tally(library=False)
+    rows = x.numel() // 256
+    t.add(err, 2, ms, plain, 2 * nbytes(x) + (2 * 256 * 1024 + 1024 + 256) * 2,
+          4 * rows * 256 * 1024)
+    results["ffn"] = t.row()
 
     # K4: stage-3 FFN pair, 1 call per chunk
-    x = randn(4, 48, 48, 96, 128, dtype=bf)
+    x = randn(CHUNK, 48, 48, 96, 128, dtype=bf)
     p1, p2 = ffn_params(128, 512), ffn_params(128, 512)
     got = ffn.ffn_pair(x, p1, p2, bf)
     want = ffn.reference_ffn_pair(x, p1, p2, bf)
@@ -170,57 +255,318 @@ def phase_kernels(device):
     ms = cuda_time_ms(lambda: ffn.ffn_pair(x, p1, p2, bf))
     plain = cuda_time_ms(lambda: ffn.reference_ffn_pair(x, p1, p2, bf))
     log(f"  ffn_pair: {ms!r} ms, plain {plain!r} ms")
-    results["ffn_pair"] = (err, ms, plain)
+    t = Tally(library=False)
+    rows = x.numel() // 128
+    t.add(err, 1, ms, plain, 2 * nbytes(x) + 2 * (2 * 128 * 512 + 512 + 128) * 2,
+          2 * 4 * rows * 128 * 512)
+    results["ffn_pair"] = t.row()
     del x, got, want
 
-    # K5: the four pyramid shuffles, 1 call each per chunk
-    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
-    for shape, factor, F in (((4, 6, 6, 12, 768), (2, 2, 2), 512),
-                             ((4, 12, 12, 24, 512), (2, 2, 2), 256),
-                             ((4, 24, 24, 48, 256), (2, 2, 2), 128),
-                             ((4, 48, 48, 96, 128), (2, 2, 1), 64)):
+    # K5: the four pyramid shuffles, 1 call each per chunk (TUNet; CTUNet's
+    # res-only path runs the first three)
+    t = Tally(library=False)
+    for shape, factor, Fo in (((CHUNK, 6, 6, 12, 768), (2, 2, 2), 512),
+                              ((CHUNK, 12, 12, 24, 512), (2, 2, 2), 256),
+                              ((CHUNK, 24, 24, 48, 256), (2, 2, 2), 128),
+                              ((CHUNK, 48, 48, 96, 128), (2, 2, 1), 64)):
         cp = shape[-1] // int(np.prod(factor))
         x = randn(*shape, dtype=bf)
-        w, b = randn(F, cp, std=cp ** -0.5), randn(F, std=0.1)
+        w, b = randn(Fo, cp, std=cp ** -0.5), randn(Fo, std=0.1)
         got = shuffle.pixel_shuffle_linear(x, w, b, factor, bf)
         want = shuffle.reference_shuffle(x, w, b, factor, bf)
-        worst = max(worst, check_bf16(f"pixel_shuffle_linear {shape} {factor} -> {F}", got, want))
+        err = check_bf16(f"pixel_shuffle_linear {shape} {factor} -> {Fo}", got, want)
         ms = cuda_time_ms(lambda: shuffle.pixel_shuffle_linear(x, w, b, factor, bf))
         plain = cuda_time_ms(lambda: shuffle.reference_shuffle(x, w, b, factor, bf))
         log(f"  pixel_shuffle_linear {shape}: {ms!r} ms, plain {plain!r} ms")
-        ms_sum, plain_sum = ms_sum + ms, plain_sum + plain
-    results["pixel_shuffle_linear"] = (worst, ms_sum, plain_sum)
+        t.add(err, 1, ms, plain, nbytes(x, got) + (Fo * cp + Fo) * 2, 2 * got.numel() * cp)
+    results["pixel_shuffle_linear"] = t.row()
+    del x, got, want
+
+    # K6: the four decoder upsamples of CTUNet/CUNet, 1 call each per chunk;
+    # library: F.conv_transpose3d (cuDNN) on the channels-last views
+    t = Tally(library=True)
+    for shape, k, cout in (((CHUNK, 6, 6, 12, 1024), (2, 2, 2), 512),
+                           ((CHUNK, 12, 12, 24, 512), (2, 2, 2), 256),
+                           ((CHUNK, 24, 24, 48, 256), (2, 2, 2), 128),
+                           ((CHUNK, 48, 48, 96, 128), (2, 2, 1), 64)):
+        cin = shape[-1]
+        x = randn(*shape, dtype=bf)
+        w = randn(cin, cout, *k, std=(2.0 / (cin * int(np.prod(k)))) ** 0.5)
+        got = shuffle.transp_conv_kxs(x, w, bf)
+        want = shuffle.reference_transp_conv(x, w, bf)
+        err = check_bf16(f"transp_conv_kxs {shape} {k} -> {cout}", got, want)
+        ms = cuda_time_ms(lambda: shuffle.transp_conv_kxs(x, w, bf))
+        plain = cuda_time_ms(lambda: shuffle.reference_transp_conv(x, w, bf))
+        xc, wb = x.permute(0, 4, 1, 2, 3), w.to(bf)
+        lib = cuda_time_ms(lambda: F.conv_transpose3d(xc, wb, stride=k))
+        log(f"  transp_conv_kxs {shape}: {ms!r} ms, plain {plain!r} ms, conv_transpose3d {lib!r} ms")
+        t.add(err, 1, ms, plain, nbytes(x, got) + wb.numel() * 2, 2 * got.numel() * cin, lib)
+    results["transp_conv_kxs"] = t.row()
+    del x, got, want
+
+    # K7: the two fusions of each Up2FusionBlock, 2 calls per width per chunk
+    t = Tally(library=False)
+    for shape in ((CHUNK, 12, 12, 24, 512), (CHUNK, 24, 24, 48, 256), (CHUNK, 48, 48, 96, 128)):
+        C = shape[-1]
+        x1, x2 = randn(*shape, dtype=bf), randn(*shape, dtype=bf)
+        p = (1.0 + randn(C, std=0.1), randn(C, std=0.1), 1.0 + randn(C, std=0.1),
+             randn(C, std=0.1), randn(3 * C, C, std=C ** -0.5), randn(3 * C, C, std=C ** -0.5),
+             randn(C, C, std=C ** -0.5))
+        got = pixelweight.pixelweight(x1, x2, p, bf)
+        want = pixelweight.reference_pixelweight(x1, x2, p, bf)
+        err = check_bf16(f"pixelweight {shape}", got, want)
+        ms = cuda_time_ms(lambda: pixelweight.pixelweight(x1, x2, p, bf))
+        plain = cuda_time_ms(lambda: pixelweight.reference_pixelweight(x1, x2, p, bf))
+        log(f"  pixelweight {shape}: {ms!r} ms, plain {plain!r} ms")
+        rows = x1.numel() // C
+        t.add(err, 2, ms, plain, nbytes(x1, x2, got) + 7 * C * C * 2 + 4 * C * 4,
+              14 * rows * C * C)
+    results["pixelweight"] = t.row()
+    del x1, x2, got, want
+
+    # K8: every conv-path InstanceNorm of one CTUNet res-only chunk (the
+    # shapes recorded from a forward on the meta device); library:
+    # F.instance_norm (+ in-place F.leaky_relu_) on the channels-last view
+    meta = CTUNet(out_channels=bench.OUT_CHANNELS, model_depth=101, patch_frame=8,
+                  dtype=bf, device="meta")
+    sites = record_norm_sites(meta, torch.empty(CHUNK, *bench.ROI, 1, device="meta"),
+                              res_only=True)
+    log(f"  instance_norm sites per CTUNet chunk: {sum(sites.values())} calls, "
+        f"{len(sites)} distinct (shape, act)")
+    if sum(sites.values()) != tree_launches(meta, res_only=True)["instance_norm"]:
+        raise AssertionError("recorded InstanceNorm sites differ from the module tree's count")
+    t = Tally(library=True)
+    for (shape, act), n in sorted(sites.items()):
+        x = randn(*shape, dtype=bf, std=2.0, mean=0.5)
+        run = (lambda: norm.instance_norm_leaky(x)) if act else (lambda: norm.instance_norm(x))
+
+        def plain_fn():
+            y = norm.reference_instance_norm(x)
+            return F.leaky_relu(y, 0.01) if act else y
+
+        def lib_fn():
+            y = F.instance_norm(x.permute(0, 4, 1, 2, 3), eps=1e-5)
+            return F.leaky_relu_(y, 0.01) if act else y
+
+        err = check_bf16(f"instance_norm {shape} act={act} x{n}", run(), plain_fn())
+        ms, plain, lib = cuda_time_ms(run), cuda_time_ms(plain_fn), cuda_time_ms(lib_fn)
+        log(f"  instance_norm {shape} act={act}: {ms!r} ms, plain {plain!r} ms, "
+            f"F.instance_norm {lib!r} ms")
+        t.add(err, n, ms, plain, 2 * nbytes(x), 5 * x.numel(), lib)
+        del x
+    results["instance_norm"] = t.row()
     return results
 
 
-def phase_model_check(model, device):
-    """One 4-window batch through the bf16 model with its kernels and with
-    their plain versions (the modules' gates turned off for the second run)."""
+def tree_launches(model, res_only: bool = False):
+    """Kernel launches per chunk that the module tree of a TUNet, CTUNet or
+    CUNet forward implies (CTUNet ``res_only``: the ensemble's predictor).
+    Every InstanceNorm of a ResBlock, Bottleneck or the ResNet stem is K8;
+    stages 0-2 of the attention pyramid run two window attentions (K2) and
+    a shuffle (K5) each, their FFNs K3 where hidden <= 1024 (stage 2; the
+    wider ViT-side stages 0-1 stay plain, as in the JAX package), stage 3
+    the FFN pair (K4) and a shuffle; each transposed conv is K6, each
+    pixelweight fusion K7; the engine's scatter (K1) runs once a chunk."""
+    from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet
+    from hybrid_ctunet_tpu_torch.models import layers
+    from hybrid_ctunet_tpu_torch.models.resnet3d import Bottleneck
+
+    def count(mods, cls):
+        return sum(isinstance(m, cls) for mod in mods for m in mod.modules())
+
+    def norms(mods):
+        n = 0
+        for mod in mods:
+            for m in mod.modules():
+                if isinstance(m, layers.ResBlock):
+                    n += 2 + int(m.needs_proj)
+                elif isinstance(m, Bottleneck):
+                    n += 3 + int(m.downsample is not None)
+        return n
+
+    got = {"scatter_add_windows": 1, "window_attention": 0, "ffn": 0, "ffn_pair": 0,
+           "pixel_shuffle_linear": 0, "transp_conv_kxs": 0, "pixelweight": 0,
+           "instance_norm": 0}
+    if not isinstance(model, CUNet):
+        stages = list(model.vit_encoder.layers[:3 if res_only else 4])
+        got["window_attention"] = count(stages, layers.MultiAxisWindowAttention)
+        got["ffn"] = sum(1 for s in stages[:3] for m in s.modules()
+                         if isinstance(m, layers.FeedForward) and m.net[1].weight.shape[0] <= 1024)
+        got["ffn_pair"] = int(len(stages) == 4)
+        got["pixel_shuffle_linear"] = count(stages, layers.PixelShuffleLinear)
+        if not res_only:
+            got["instance_norm"] += norms([model.vit_encoder0, model.vit_decoder0])
+    if isinstance(model, (CTUNet, CUNet)):
+        dec = [getattr(model, f"res_decoder{k}") for k in range(4)]
+        got["transp_conv_kxs"] = count(dec, layers.ConvTranspose3d)
+        got["pixelweight"] = count(dec, layers.PixelweightFusion)
+        got["instance_norm"] += 1 + norms([model.convnet, *dec])  # stem + blocks
+    return got
+
+
+def check_launches(what, counts, per_chunk_and_chunks):
+    """counts == sum over (per-chunk dict, chunks) of per-chunk * chunks."""
+    want = collections.Counter()
+    for per_chunk, chunks in per_chunk_and_chunks:
+        for k, v in per_chunk.items():
+            want[k] += v * chunks
+    want = {k: want[k] for k in counts}
+    log(f"  {what} launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} differ from the module tree's {want}")
+
+
+def gates_off():
+    """Context: every kernel module's gate declines, so each site takes its
+    plain version."""
+    import contextlib
+
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, n, getattr(m, n)) for m, n in (
+            (attention, "supports"), (ffn, "supports"), (shuffle, "supports"),
+            (shuffle, "transp_supports"), (pixelweight, "supports"), (norm, "supports"))]
+        for m, n, _ in saved:
+            setattr(m, n, lambda *a, **k: False)
+        try:
+            yield
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    return ctx()
+
+
+def per_call_checks():
+    """Context: every kernel wrapper also runs its plain version on the same
+    inputs and holds the two to the bf16 tolerance; yields {site: worst
+    rel L2}. The model's own activations, not random tensors, reach each
+    kernel."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle
+
+    def plain_ffn(x, *p, residual=False):
+        out = ffn.reference_ffn(x, *p)
+        return x + out if residual else out
+
+    plains = (
+        (attention, "window_attention", attention.reference_window_attention),
+        (ffn, "ffn", plain_ffn),
+        (ffn, "ffn_pair", ffn.reference_ffn_pair),
+        (shuffle, "pixel_shuffle_linear", shuffle.reference_shuffle),
+        (shuffle, "transp_conv_kxs", shuffle.reference_transp_conv),
+        (pixelweight, "pixelweight", pixelweight.reference_pixelweight),
+        (norm, "instance_norm", norm.reference_instance_norm),
+        (norm, "instance_norm_leaky",
+         lambda x, eps=1e-5, negative_slope=0.01: F.leaky_relu(
+             norm.reference_instance_norm(x, eps), negative_slope)),
+    )
+
+    @contextlib.contextmanager
+    def ctx():
+        worst = {}
+        saved = [(m, n, getattr(m, n)) for m, n, _ in plains]
+
+        def checked(name, kernel, plain):
+            def f(*args, **kw):
+                out = kernel(*args, **kw)
+                want = plain(*args, **kw)
+                max_abs, rel_l2 = errors(out, want)
+                site = f"{name} {tuple(args[0].shape)}"
+                worst[site] = max(worst.get(site, 0.0), rel_l2)
+                if not (max_abs <= BF16_MAX_ABS_FRACTION * want.float().abs().max().item()
+                        and rel_l2 <= BF16_REL_L2):
+                    raise AssertionError(f"{site}: kernel disagrees with its plain version on "
+                                         f"the model's activations ({max_abs!r}, {rel_l2!r})")
+                return out
+
+            f.launches = getattr(kernel, "launches", 0)  # the wrappers count on their module name
+            return f
+
+        for (m, n, plain), (_, _, kernel) in zip(plains, saved):
+            setattr(m, n, checked(n, kernel, plain))
+        try:
+            yield worst
+        finally:
+            for m, n, kernel in saved:
+                setattr(m, n, kernel)
+
+    return ctx()
+
+
+def model_check(name, forward, device, chaotic: bool = False):
+    """One 4-window batch through the bf16 model: every kernel call held to
+    its plain version on the model's own activations, then the output with
+    the kernels against the same model on their plain versions (the gates
+    turned off), beside the plain model's response to a one-ulp perturbation
+    of its bf16 input. ``chaotic``: the random-weight model amplifies
+    rounding differences to O(1) (the ResNet-101 encoder of CTUNet does),
+    so the end-to-end bound is 1.5x that response instead of
+    MODEL_REL_L2."""
     import torch
 
     from hybrid_ctunet_tpu_torch.cli import bench
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, shuffle
 
-    x = bench.make_volume(SEED + 7, (4, 96, 96, 96), device)[0]
+    x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 8)
+    sign = torch.randint(0, 2, x.shape, generator=gen, device=device) * 2 - 1
+    x_ulp = (x.float() * (1 + 2.0 ** -8 * sign)).to(torch.bfloat16)  # one bf16 ulp
     with torch.inference_mode():
-        got = model(x.to(torch.bfloat16))[0]
-        gates = (attention.supports, ffn.supports, shuffle.supports)
-        off = lambda *a, **k: False
-        attention.supports = ffn.supports = shuffle.supports = off
-        try:
-            want = model(x.to(torch.bfloat16))[0]
-        finally:
-            attention.supports, ffn.supports, shuffle.supports = gates
+        with per_call_checks() as worst:
+            got = forward(x)
+        with gates_off():
+            want = forward(x)
+            moved = forward(x_ulp)
     torch.cuda.synchronize()
+    log(f"  {name}, per-call rel_l2 vs plain on the model's activations (bound {BF16_REL_L2}): "
+        f"worst {max(worst.values())!r} over {len(worst)} sites")
     max_abs, rel_l2 = errors(got, want)
+    sensitivity = errors(moved, want)[1]
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"  model, 4 windows, kernels vs plain: max_abs_err {max_abs!r} rel_l2 {rel_l2!r} "
-        f"(bound {MODEL_REL_L2}) argmax agreement {agree!r}")
-    if not torch.isfinite(got.float()).all() or rel_l2 > MODEL_REL_L2:
-        raise AssertionError("model with kernels disagrees with the plain model")
+    bound = 1.5 * sensitivity if chaotic else MODEL_REL_L2
+    log(f"  {name}, 4 windows, kernels vs plain: max_abs_err {max_abs!r} rel_l2 {rel_l2!r} "
+        f"(bound {bound!r}) argmax agreement {agree!r}; plain model vs a one-ulp input "
+        f"perturbation: rel_l2 {sensitivity!r}")
+    if not torch.isfinite(got.float()).all() or rel_l2 > bound:
+        raise AssertionError(f"{name} with kernels disagrees with the plain model")
 
 
-def phase_slice(device):
+def check_map(name, logits):
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    want_shape = (1, *bench.VOLUME_SHAPE, bench.OUT_CHANNELS)
+    if tuple(logits.shape) != want_shape or not torch.isfinite(logits).all():
+        raise AssertionError(f"{name}: {tuple(logits.shape)} (want {want_shape}) or non-finite")
+    log(f"  {name}: mean {logits.mean().item()!r} std {logits.std().item()!r}")
+
+
+def check_mask(mask):
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    if tuple(mask.shape) != (1, *bench.VOLUME_SHAPE) or mask.min() < 0 \
+            or mask.max() >= bench.OUT_CHANNELS:
+        raise AssertionError("argmax mask out of range")
+    log(f"  mask classes {torch.bincount(mask.flatten(), minlength=bench.OUT_CHANNELS).tolist()}")
+
+
+def n_chunks(engine):
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    n = len(engine.plan(bench.VOLUME_SHAPE)[3])
+    return n, -(-n // engine.sw_batch_size)
+
+
+def phase_tunet(device):
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
@@ -234,8 +580,9 @@ def phase_slice(device):
         raise AssertionError(f"TUNet has {n_params} params, expected 109904124")
     engine = bench.make_engine(model)
     volume = bench.make_volume(SEED, bench.VOLUME_SHAPE, device)
-    n_windows = len(engine.plan(bench.VOLUME_SHAPE)[3])
-    log(f"  volume {bench.VOLUME_SHAPE}, roi {bench.ROI}, overlap {bench.OVERLAP}: {n_windows} windows")
+    n_windows, chunks = n_chunks(engine)
+    log(f"  volume {bench.VOLUME_SHAPE}, roi {bench.ROI}, overlap {bench.OVERLAP}: "
+        f"{n_windows} windows, {chunks} chunks")
     if n_windows != 147:
         raise AssertionError(f"{n_windows} windows, expected 147")
 
@@ -246,24 +593,92 @@ def phase_slice(device):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    log(f"  first volume (warm-up) {first!r} s; launches {counts}")
-    want_shape = (1, *bench.VOLUME_SHAPE, bench.OUT_CHANNELS)
-    if tuple(logits.shape) != want_shape or not torch.isfinite(logits).all():
-        raise AssertionError(f"output {tuple(logits.shape)} (want {want_shape}) or non-finite")
-    if tuple(mask.shape) != want_shape[:4] or mask.min() < 0 or mask.max() >= bench.OUT_CHANNELS:
-        raise AssertionError("argmax mask out of range")
-    hist = torch.bincount(mask.flatten(), minlength=bench.OUT_CHANNELS).tolist()
-    log(f"  logits mean {logits.mean().item()!r} std {logits.std().item()!r}; mask classes {hist}")
-    missing = [n for n, c in counts.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    log(f"  first volume (warm-up) {first!r} s")
+    check_launches("TUNet volume", counts, [(tree_launches(model), chunks)])
+    check_map("TUNet logits", logits)
+    check_mask(mask)
     del logits, mask
 
     stats = bench.time_volumes(engine, volume, reps=2, warmup=False)
     log(f"  timed volumes {stats['seconds_per_volume']!r} s -> "
         f"{stats['volumes_per_min']!r} vol/min; peak memory {stats['peak_mem_bytes']} B")
-    phase_model_check(model, device)
-    return counts, stats
+    model_check("TUNet", lambda x: model(x)[0], device)
+    return model, engine, volume, stats
+
+
+def phase_hybrid(tunet, tu_engine, volume, device):
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    t0 = time.perf_counter()
+    ctunet = bench.build_ctunet(SEED, device)
+    n_params = sum(p.numel() for p in ctunet.parameters())
+    log(f"  CTUNet params {n_params} (built in {time.perf_counter() - t0:.3f} s)")
+    if n_params != 174_109_542:
+        raise AssertionError(f"CTUNet has {n_params} params, expected 174109542")
+    ct_engine = bench.make_ctunet_engine(ctunet)
+    ct_windows, ct_chunks = n_chunks(ct_engine)
+    tu_windows, tu_chunks = n_chunks(tu_engine)
+    log(f"  CTUNet overlap {bench.CT_OVERLAP}: {ct_windows} windows, {ct_chunks} chunks; "
+        f"TUNet overlap {bench.OVERLAP}: {tu_windows} windows, {tu_chunks} chunks")
+    if (ct_windows, tu_windows) != (50, 147):
+        raise AssertionError(f"{ct_windows}/{tu_windows} windows, expected 50/147")
+    ct_tree = tree_launches(ctunet, res_only=True)
+    log(f"  CTUNet res-only launches per chunk (module tree) {ct_tree}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_map, tu_map, prob, mask = bench.segment_hybrid(ct_engine, tu_engine, volume)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    hybrid_counts = kernels.launch_counts()
+    log(f"  first hybrid volume (warm-up) {first!r} s")
+    check_launches("hybrid volume", hybrid_counts,
+                   [(ct_tree, ct_chunks), (tree_launches(tunet), tu_chunks)])
+    check_map("CTUNet res map", res_map)
+    check_map("TUNet map", tu_map)
+    if not torch.isfinite(prob).all() or not torch.allclose(
+            prob.sum(-1), torch.ones((), device=device), atol=1e-4):
+        raise AssertionError("ensemble probabilities are not finite distributions")
+    check_mask(mask)
+    del res_map, tu_map, prob, mask
+
+    stats = bench.time_hybrid(ct_engine, tu_engine, volume, reps=2, warmup=False)
+    log(f"  timed hybrid volumes {stats['seconds_per_volume']!r} s (CTUNet "
+        f"{stats['ctunet_seconds_per_volume']!r}, TUNet {stats['tunet_seconds_per_volume']!r}) "
+        f"-> {stats['volumes_per_min']!r} vol/min; peak memory {stats['peak_mem_bytes']} B")
+    model_check("CTUNet res head", lambda x: ctunet(x, res_only=True), device, chaotic=True)
+    del ctunet, ct_engine
+    torch.cuda.empty_cache()
+
+    # full-width CUNet, one 4-window batch
+    from hybrid_ctunet_tpu_torch.models import CUNet
+    from hybrid_ctunet_tpu_torch.utils.params import random_init_
+
+    cunet = random_init_(CUNet(bench.OUT_CHANNELS, 101, dtype=torch.bfloat16, device=device),
+                         SEED).eval()
+    n_params = sum(p.numel() for p in cunet.parameters())
+    log(f"  CUNet params {n_params}")
+    if n_params != 50_779_754:
+        raise AssertionError(f"CUNet has {n_params} params, expected 50779754")
+    x = bench.make_volume(SEED + 9, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        outs = cunet(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    tree = tree_launches(cunet)
+    tree["scatter_add_windows"] = 0  # no engine here
+    check_launches("CUNet 4 windows", counts, [(tree, 1)])
+    shapes = [tuple(o.shape) for o in outs]
+    if shapes != [(CHUNK, 96, 96, 96, 14), (CHUNK, 48, 48, 96, 14), (CHUNK, 24, 24, 48, 14)] \
+            or not all(torch.isfinite(o.float()).all() for o in outs):
+        raise AssertionError(f"CUNet outputs {shapes} or non-finite")
+    log(f"  CUNet outputs {shapes}, finite")
+    return stats, hybrid_counts
 
 
 def main() -> int:
@@ -293,20 +708,23 @@ def main() -> int:
     results = phase_kernels(device)
 
     log("phase 4: TUNet sliding-window slice")
-    counts, stats = phase_slice(device)
+    tunet, tu_engine, volume, tu_stats = phase_tunet(device)
+
+    log("phase 5: Hybrid-CTUNet ensemble (the main path)")
+    hy_stats, counts = phase_hybrid(tunet, tu_engine, volume, device)
 
     entries = []
     for info in kernels.KERNELS:
-        err, ms, plain = results[info.name]
         entries.append({
             "name": info.name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": counts[info.name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "replaces": info.replaces, "launches": counts[info.name], **results[info.name],
         })
     log(json.dumps({
-        "slice": {"seconds_per_volume": stats["seconds_per_volume"],
-                  "volumes_per_min": stats["volumes_per_min"],
-                  "peak_mem_bytes": stats["peak_mem_bytes"]},
+        "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
+                                            "tunet_seconds_per_volume", "volumes_per_min",
+                                            "peak_mem_bytes")},
+        "tunet_slice": {k: tu_stats[k] for k in ("seconds_per_volume", "volumes_per_min",
+                                                 "peak_mem_bytes")},
     }))
     log(card)
     log(json.dumps({"kernels": entries}))

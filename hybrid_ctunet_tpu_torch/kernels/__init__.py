@@ -29,7 +29,8 @@ from typing import Dict, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("scatter", "window_attention", "ffn", "pixel_shuffle")
+SOURCES = ("scatter", "window_attention", "ffn", "pixel_shuffle", "transp_conv", "pixelweight",
+           "instance_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -63,6 +64,15 @@ KERNELS: Tuple[KernelInfo, ...] = (
     KernelInfo("pixel_shuffle_linear", "ops.shuffle",
                "hybrid_ctunet_tpu_torch/csrc/pixel_shuffle.cu",
                "hybrid_ctunet_tpu/ops/shuffle_pallas.py:111"),
+    KernelInfo("transp_conv_kxs", "ops.shuffle",
+               "hybrid_ctunet_tpu_torch/csrc/transp_conv.cu",
+               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:240"),
+    KernelInfo("pixelweight", "ops.pixelweight",
+               "hybrid_ctunet_tpu_torch/csrc/pixelweight.cu",
+               "hybrid_ctunet_tpu/ops/pixelweight.py:128"),
+    KernelInfo("instance_norm", "ops.norm",
+               "hybrid_ctunet_tpu_torch/csrc/instance_norm.cu",
+               "hybrid_ctunet_tpu/ops/norm_pallas.py:45"),
 )
 
 

@@ -48,9 +48,10 @@ class UpAttentionBlock(nn.Module):
             stages.append(nn.ModuleList([seq]))
         self.layers = nn.ModuleList(stages)
 
-    def forward(self, x):
+    def forward(self, x, stages: int = 4):
+        """The pyramid [x, stage 0 out, ..., stage ``stages``-1 out]."""
         features = [x]
-        for ind, stage in enumerate(self.layers):
+        for ind, stage in enumerate(self.layers[:stages]):
             seq = stage[0]
             if ind <= 2:
                 x = x + seq[1].fn(x)

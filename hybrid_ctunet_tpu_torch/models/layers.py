@@ -19,14 +19,26 @@ from torch import nn
 
 from ..ops import attention as attention_ops
 from ..ops import ffn as ffn_ops
+from ..ops import norm as norm_ops
+from ..ops import pixelweight as pixelweight_ops
 from ..ops import shuffle as shuffle_ops
 from ..ops.act import leaky_relu
-from ..ops.conv import _triple, conv3d_same
-from ..ops.norm import instance_norm, instance_norm_leaky, layer_norm
+from ..ops.conv import _triple, conv3d_same, conv_transpose3d_same
+from ..ops.norm import layer_norm
 
 
 def _empty(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=torch.float32, device=device))
+
+
+def instance_norm_act(x: torch.Tensor, act: bool = False) -> torch.Tensor:
+    """The conv-path epilogue, InstanceNorm [+ LeakyReLU 0.01]: ops.norm's
+    kernel (K8) where its gate takes the tensor (bf16), the plain version
+    elsewhere."""
+    if norm_ops.supports(x):
+        return norm_ops.instance_norm_leaky(x) if act else norm_ops.instance_norm(x)
+    y = norm_ops.reference_instance_norm(x)
+    return leaky_relu(y) if act else y
 
 
 class Dense(nn.Module):
@@ -70,6 +82,15 @@ class Conv3dWeights(nn.Module):
         super().__init__()
         self.weight = _empty(cout, cin, *_triple(kernel_size), device=device)
         self.bias = _empty(cout, device=device) if bias else None
+
+
+class _Weight(nn.Module):
+    """Holder of one bias-free ``weight`` — the ``.conv`` of MONAI's
+    transposed Convolution."""
+
+    def __init__(self, *shape, device=None):
+        super().__init__()
+        self.weight = _empty(*shape, device=device)
 
 
 class Conv3d(nn.Module):
@@ -248,10 +269,105 @@ class ResBlock(nn.Module):
     def forward(self, x, skip=None):
         if skip is not None:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-        out = instance_norm_leaky(self.conv1(x))
-        out = instance_norm(self.conv2(out))
-        residual = instance_norm(self.conv3(x)) if self.needs_proj else x
+        out = instance_norm_act(self.conv1(x), act=True)
+        out = instance_norm_act(self.conv2(out))
+        residual = instance_norm_act(self.conv3(x)) if self.needs_proj else x
         return leaky_relu(out + residual)
+
+
+class ConvTranspose3d(nn.Module):
+    """Bias-free SAME transposed conv; every reference use has kernel ==
+    stride (the K6 GEMM in ops.shuffle). Key ``conv.weight`` in torch's
+    (Cin, Cout, k0, k1, k2) layout."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, stride, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.stride = _triple(stride)
+        self.dtype = dtype
+        self.conv = _Weight(cin, cout, *_triple(kernel_size), device=device)
+
+    def forward(self, x):
+        return conv_transpose3d_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                                     self.stride)
+
+
+class PixelweightFusion(nn.Module):
+    """Binary cross-weight attention fusing two same-shape streams (reference
+    pixelweight_attention, hybrid_CTUNet.py:622-669). Keys ``norm1``,
+    ``norm2``, ``to_qkv1``, ``to_qkv2``, ``to_out.0``, all projections
+    bias-free. In bf16 it runs ops.pixelweight (K7 on CUDA tensors)."""
+
+    def __init__(self, dim: int, dim_head: int = 32, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim_head, self.dtype = dim_head, dtype
+        self.norm1 = LayerNorm(dim, device=device)
+        self.norm2 = LayerNorm(dim, device=device)
+        self.to_qkv1 = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
+        self.to_qkv2 = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
+        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device))
+
+    def forward(self, x1, x2):
+        p = (self.norm1.weight, self.norm1.bias, self.norm2.weight, self.norm2.bias,
+             self.to_qkv1.weight, self.to_qkv2.weight, self.to_out[0].weight)
+        x1, x2 = x1.to(self.dtype), x2.to(self.dtype)
+        if pixelweight_ops.supports(x1.shape[-1], self.dtype, self.dim_head):
+            return pixelweight_ops.pixelweight(x1, x2, p, self.dtype, self.dim_head)
+        return pixelweight_ops.reference_pixelweight(x1, x2, p, self.dtype, self.dim_head)
+
+
+class UpCatConvBlock(nn.Module):
+    """Transposed-conv upsample -> concat skip -> ResBlock (reference
+    UpCatConvBlock, hybrid_CTUNet.py:148-201)."""
+
+    def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        s = _triple(upsample_stride)
+        self.transp_conv = ConvTranspose3d(cin, features, s, s, dtype=dtype, device=device)
+        self.conv_block = ResBlock(2 * features, features, kernel_size, 1, dtype=dtype,
+                                   device=device)
+
+    def forward(self, x, skip):
+        return self.conv_block(self.transp_conv(x), skip)
+
+
+class UpConvBlock(nn.Module):
+    """Transposed-conv upsample -> ResBlock, no skip (reference UpConvBlock,
+    hybrid_CTUNet.py:203-255)."""
+
+    def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        s = _triple(upsample_stride)
+        self.transp_conv = ConvTranspose3d(cin, features, s, s, dtype=dtype, device=device)
+        self.conv_block = ResBlock(features, features, kernel_size, 1, dtype=dtype,
+                                   device=device)
+
+    def forward(self, x):
+        return self.conv_block(self.transp_conv(x))
+
+
+class Up2FusionBlock(nn.Module):
+    """CTUNet fusion decoder stage, the reference's active "fusion2" forward
+    (hybrid_CTUNet.py:329-341): pixelweight-fuse(skip_conv, skip_vit) ->
+    ResBlock; transposed conv of x; pixelweight-fuse(that, skip) -> ResBlock."""
+
+    def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        s = _triple(upsample_stride)
+        kw = dict(dtype=dtype, device=device)
+        self.pixelweight_attention1 = PixelweightFusion(features, **kw)
+        self.up_addconv_block1 = ResBlock(features, features, kernel_size, 1, **kw)
+        self.transp_conv = ConvTranspose3d(cin, features, s, s, **kw)
+        self.pixelweight_attention2 = PixelweightFusion(features, **kw)
+        self.up_addconv_block2 = ResBlock(features, features, kernel_size, 1, **kw)
+
+    def forward(self, x, skip_conv, skip_vit):
+        skip = self.up_addconv_block1(self.pixelweight_attention1(skip_conv, skip_vit))
+        out = self.pixelweight_attention2(self.transp_conv(x), skip)
+        return self.up_addconv_block2(out)
 
 
 class CatConvBlock(nn.Module):

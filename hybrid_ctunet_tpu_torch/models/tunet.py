@@ -68,15 +68,21 @@ class TUNetCore(nn.Module):
         self.vit_out = UnetOutHead(dim_conv_stem, out_channels, **kw)
         self.decoder_linear_96x96 = _Holder(head=Dense(64, out_channels, **kw))
 
-    def forward(self, x):
-        B = x.shape[0]
+    def pyramid(self, x, stages: int = 4):
+        """ViT tokens -> grid -> the decoder pyramid through ``stages``."""
         tokens = self.vit(x)
-        grid = tokens.reshape(B, *self.grid, self.hidden_size)  # tokens (h w f) -> grid
-        pyramid = self.vit_encoder(grid)
+        grid = tokens.reshape(x.shape[0], *self.grid, self.hidden_size)  # tokens (h w f) -> grid
+        return self.vit_encoder(grid, stages)
+
+    def heads(self, x, pyramid):
+        """Conv stem, full-resolution decoder, and the two output heads."""
         stem = self.vit_encoder0.layer(x)
         fused = self.vit_decoder0(pyramid[-1], stem)
-        vit_logits = self.vit_out(fused)
-        vit_96 = self.decoder_linear_96x96.head(pyramid[-1])
+        return self.vit_out(fused), self.decoder_linear_96x96.head(pyramid[-1])
+
+    def forward(self, x):
+        pyramid = self.pyramid(x)
+        vit_logits, vit_96 = self.heads(x, pyramid)
         return vit_logits, vit_96, pyramid
 
 

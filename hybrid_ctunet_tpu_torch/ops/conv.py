@@ -1,5 +1,7 @@
-"""3D convolution with MONAI "SAME" padding, channels-last in and out.
-Port of the plain branch of ``hybrid_ctunet_tpu/ops/conv.py:37-135``.
+"""3D convolution and transposed convolution with MONAI "SAME" padding,
+channels-last in and out. Port of the plain branches of
+``hybrid_ctunet_tpu/ops/conv.py`` (``conv3d_same`` :75,
+``conv_transpose3d_same`` :413).
 
 The activation stays NDHWC at the function boundary; the conv runs on the
 NCDHW view of that memory, which is ``torch.channels_last_3d``, so cuDNN
@@ -12,6 +14,8 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import shuffle
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -40,6 +44,18 @@ def same_padding(kernel_size, stride) -> Tuple[int, int, int]:
     return tuple(pads)  # type: ignore[return-value]
 
 
+def transpose_output_padding(kernel_size, stride, padding) -> Tuple[int, int, int]:
+    """MONAI's transposed-conv output padding: ``2p + s - k`` per axis."""
+    k, s, p = _triple(kernel_size), _triple(stride), _triple(padding)
+    out = []
+    for ki, si, pi in zip(k, s, p):
+        op = 2 * pi + si - ki
+        if op < 0:
+            raise ValueError(f"negative output padding for kernel={ki}, stride={si}, padding={pi}")
+        out.append(int(op))
+    return tuple(out)  # type: ignore[return-value]
+
+
 def conv3d_same(
     x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] | int = 1
 ) -> torch.Tensor:
@@ -54,4 +70,29 @@ def conv3d_same(
     xc = x.permute(0, 4, 1, 2, 3)
     wc = w.contiguous(memory_format=torch.channels_last_3d)
     y = F.conv3d(xc, wc, stride=s, padding=p)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv_transpose3d_same(
+    x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] | int
+) -> torch.Tensor:
+    """Channels-last transposed 3D conv reproducing torch ConvTranspose3d with
+    MONAI's (padding, output_padding) rule; output spatial = input * stride.
+
+    x: (B, X, Y, Z, Cin); w: (Cin, Cout, kx, ky, kz), torch's ConvTranspose3d
+    layout (the JAX function takes (kx, ky, kz, Cin, Cout)). Output in x's
+    dtype. kernel == stride (every decoder upsample of the reference) is one
+    GEMM Cin -> k^3 Cout with an interleaving store: ops.shuffle's K6 where
+    its gate takes the shape, its plain version elsewhere. Other kernels go
+    to ``F.conv_transpose3d``.
+    """
+    s = _triple(stride)
+    k = tuple(int(v) for v in w.shape[2:])
+    if k == s:
+        if shuffle.transp_supports(x.shape, w.shape, x.dtype):
+            return shuffle.transp_conv_kxs(x, w, x.dtype)
+        return shuffle.reference_transp_conv(x, w, x.dtype)
+    p = same_padding(k, s)
+    op = transpose_output_padding(k, s, p)
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, stride=s, padding=p, output_padding=op)
     return y.permute(0, 2, 3, 4, 1)

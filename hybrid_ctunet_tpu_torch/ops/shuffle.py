@@ -1,10 +1,14 @@
-"""Anisotropic 3D pixel shuffle + per-voxel Linear (kernel module K5). Port
-of the pixel-shuffle half of ``hybrid_ctunet_tpu/ops/shuffle_pallas.py``
-(``reference_shuffle``, ``fused_pixel_shuffle``).
+"""The two interleaving GEMMs of ``hybrid_ctunet_tpu/ops/shuffle_pallas.py``.
 
-The channel dim splits as (C', f0, f1, f2) with C' slowest; the factor
-offsets interleave into space; then Linear(C' -> F) + bias. ``w`` is in
-torch's Linear layout (F, C').
+K5, anisotropic 3D pixel shuffle + per-voxel Linear (``reference_shuffle``,
+``fused_pixel_shuffle``): the channel dim splits as (C', f0, f1, f2) with C'
+slowest; the factor offsets interleave into space; then Linear(C' -> F) +
+bias. ``w`` is in torch's Linear layout (F, C').
+
+K6, the bias-free kernel == stride ConvTranspose3d (``reference_transp_kxs``,
+``fused_transp_conv``): one GEMM Cin -> (k0, k1, k2, Cout) per input voxel,
+each sub-position's Cout slice stored at (x*k0+i, y*k1+j, z*k2+l). ``w`` is
+in torch's ConvTranspose3d layout (Cin, Cout, k0, k1, k2).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from .. import kernels
 
 _BM = 64  # csrc/pixel_shuffle.cu: GEMM rows per block
 _BN = 64  # output features per block
+_T_BN = 64  # csrc/transp_conv.cu: output features per block (within one Cout slice)
+_T_BK = 32  # input channels per K step
 
 
 def reference_shuffle(x, w, b, factor: Tuple[int, int, int], dtype):
@@ -73,3 +79,63 @@ def pixel_shuffle_linear(x, w, b, factor: Tuple[int, int, int], dtype):
 
 
 pixel_shuffle_linear.launches = 0
+
+
+def reference_transp_conv(x, w, dtype):
+    """Plain version of K6 (the einsum + interleave path of the JAX
+    ``conv_transpose3d_same``): x (B, X, Y, Z, Cin), w (Cin, Cout, k0, k1, k2)
+    -> (B, X*k0, Y*k1, Z*k2, Cout) in ``dtype``, fp32 sums rounded once."""
+    B, X, Y, Z, cin = x.shape
+    _, cout, k0, k1, k2 = w.shape
+    wm = w.to(dtype).permute(0, 2, 3, 4, 1).reshape(cin, k0 * k1 * k2 * cout)
+    y = torch.matmul(x.to(dtype), wm).reshape(B, X, Y, Z, k0, k1, k2, cout)
+    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(B, X * k0, Y * k1, Z * k2, cout)
+
+
+def transp_supports(x_shape, w_shape, dtype) -> bool:
+    """Where K6 engages: bf16, Cin a multiple of the K step, Cout of the
+    feature tile — every decoder upsample of CUNet and CTUNet (unlike the
+    TPU gate, the small 6x6x12 and 12x12x24 sites too)."""
+    return (
+        dtype == torch.bfloat16
+        and len(x_shape) == 5 and len(w_shape) == 5
+        and w_shape[0] == x_shape[-1]
+        and x_shape[-1] % _T_BK == 0
+        and w_shape[1] % _T_BN == 0
+    )
+
+
+def transp_conv_kxs(x, w, dtype):
+    """k == s transposed conv, x (B, X, Y, Z, Cin) -> (B, X*k0, Y*k1, Z*k2,
+    Cout). CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/transp_conv.cu``."""
+    if not x.is_cuda:
+        return reference_transp_conv(x, w, dtype)
+    if not transp_supports(x.shape, w.shape, dtype):
+        raise ValueError(f"transp_conv kernel: unsupported x {tuple(x.shape)} w {tuple(w.shape)} "
+                         f"{dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("transp_conv_kxs has no backward")
+    B, X, Y, Z, cin = x.shape
+    _, cout, k0, k1, k2 = (int(v) for v in w.shape)
+    x = x.contiguous()
+    # B operand rows: n = ((i*k1 + j)*k2 + l)*Cout + co, each row Cin long
+    wk = w.to(dtype).permute(2, 3, 4, 1, 0).contiguous()
+    if not wk.is_cuda or wk.device != x.device:
+        raise ValueError("weight must be on the input's CUDA device")
+    out = torch.empty((B, X * k0, Y * k1, Z * k2, cout), dtype=dtype, device=x.device)
+    fn = kernels.bind(
+        "transp_conv", "transp_conv_kxs", *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9,
+        ctypes.c_void_p,
+    )
+    err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), B, X, Y, Z, k0, k1, k2, cin, cout,
+             kernels.stream_ptr(x.device))
+    kernels.check(err, "transp_conv_kxs")
+    transp_conv_kxs.launches += 1
+    return out
+
+
+transp_conv_kxs.launches = 0

@@ -1,15 +1,18 @@
 """Weights across the two packages, and seeded random init.
 
 The port's modules carry the reference PyTorch state-dict keys, so
-``hybrid_ctunet_tpu.utils.torch_import.convert_tunet`` of a port
-``state_dict()`` (as numpy) is the JAX parameter tree.
-:func:`tunet_state_dict_from_jax` is its inverse, in numpy, without jax:
+``hybrid_ctunet_tpu.utils.torch_import.convert_{tunet,cunet,ctunet}`` of a
+port ``state_dict()`` (as numpy) is the JAX parameter tree. The
+``*_state_dict_from_jax`` functions here are their inverses, in numpy,
+without jax:
 
   Linear  kernel (in, out)               -> weight (out, in)
   Conv3d  kernel (k0, k1, k2, Cin, Cout) -> weight (Cout, Cin, k0, k1, k2)
+  ConvT3d kernel (k0, k1, k2, Cin, Cout) -> weight (Cin, Cout, k0, k1, k2)
   LayerNorm scale/bias                   -> weight/bias
-  ViT blocks stacked on a leading depth axis (``vit/blocks``, the JAX
-  package's nn.scan layout) or ``vit/block{i}``  -> ``vit.transformer.{i}``
+  blocks stacked on a leading depth axis (the JAX package's nn.scan layout:
+  ``vit/blocks``, ``convnet/layer{s}_tail/block``) or one node per block
+  (``vit/block{i}``, ``convnet/layer{s}_block{b}``) -> one key per block
 """
 from __future__ import annotations
 
@@ -27,6 +30,10 @@ def _lin(w) -> np.ndarray:
 
 def _conv(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (4, 3, 0, 1, 2)))
+
+
+def _convT(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 4, 0, 1, 2)))
 
 
 class _Out:
@@ -68,6 +75,44 @@ class _Out:
             if name in node:
                 self.conv(f"{dst}.{name}.conv", node[name])
 
+    def head(self, dst, node):
+        self.conv(f"{dst}.conv.conv", node["conv"])
+
+    def transp(self, dst, node):
+        self.put(f"{dst}.transp_conv.conv.weight", _convT(node["transp_conv"]["kernel"]))
+
+    def pixelweight(self, dst, node):
+        self.ln(f"{dst}.norm1", node["norm1"])
+        self.ln(f"{dst}.norm2", node["norm2"])
+        self.dense(f"{dst}.to_qkv1", node["to_qkv1"])
+        self.dense(f"{dst}.to_qkv2", node["to_qkv2"])
+        self.dense(f"{dst}.to_out.0", node["to_out"])
+
+    def resnet(self, dst, node):
+        self.conv(f"{dst}.conv1.conv", node["conv1"])
+        stage = 1
+        while f"layer{stage}_block0" in node:
+            blocks = [node[f"layer{stage}_block0"]]
+            tail = node.get(f"layer{stage}_tail")
+            if tail is not None:
+                depth = np.asarray(tail["block"]["conv1"]["kernel"]).shape[0]
+                blocks += [_index_tree(tail["block"], i) for i in range(depth)]
+            else:
+                b = 1
+                while f"layer{stage}_block{b}" in node:
+                    blocks.append(node[f"layer{stage}_block{b}"])
+                    b += 1
+            for b, blk in enumerate(blocks):
+                for j in (1, 2, 3):
+                    self.conv(f"{dst}.layer{stage}.{b}.conv{j}.conv", blk[f"conv{j}"])
+                if "downsample_conv" in blk:
+                    self.conv(f"{dst}.layer{stage}.{b}.downsample.0.conv", blk["downsample_conv"])
+            stage += 1
+
+    def res_heads(self, tree):
+        for name in ("res_out", "res_out_48x48", "res_out_24x24"):
+            self.head(name, tree[name])
+
 
 def _index_tree(node, i):
     if isinstance(node, Mapping):
@@ -75,15 +120,8 @@ def _index_tree(node, i):
     return np.asarray(node)[i]
 
 
-def tunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """JAX TUNet parameter tree (``{"params": {"core": ...}}`` or the inner
-    ``{"core": ...}``, leaves array-like) -> reference/port state dict of
-    float32 numpy arrays."""
-    if "params" in tree:
-        tree = tree["params"]
-    core = tree["core"]
-    out = _Out()
-
+def _tunet_core(out: _Out, core: Mapping) -> None:
+    """The ViT branch, which TUNet and CTUNet key alike (at the top level)."""
     vit = core["vit"]
     out.ln("vit.to_patch_embedding.1", vit["patch_norm1"])
     out.dense("vit.to_patch_embedding.2", vit["patch_proj"])
@@ -120,7 +158,52 @@ def tunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
     out.resblock("vit_encoder0.layer", core["vit_encoder0"])
     out.resblock("vit_decoder0.conv_block", core["vit_decoder0"]["conv_block"])
     out.dense("decoder_linear_96x96.head", core["decoder_linear_96x96"])
-    out.conv("vit_out.conv.conv", core["vit_out"]["conv"])
+    out.head("vit_out", core["vit_out"])
+
+
+def _params(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def tunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX TUNet parameter tree (``{"params": {"core": ...}}`` or the inner
+    ``{"core": ...}``, leaves array-like) -> reference/port state dict of
+    float32 numpy arrays."""
+    out = _Out()
+    _tunet_core(out, _params(tree)["core"])
+    return out.sd
+
+
+def cunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX CUNet parameter tree -> reference/port state dict (the inverse of
+    ``convert_cunet``)."""
+    tree = _params(tree)
+    out = _Out()
+    out.resnet("convnet", tree["convnet"])
+    for k in (3, 2, 1, 0):
+        node = tree[f"res_decoder{k}"]
+        out.transp(f"res_decoder{k}", node)
+        out.resblock(f"res_decoder{k}.conv_block", node["conv_block"])
+    out.res_heads(tree)
+    return out.sd
+
+
+def ctunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """JAX CTUNet parameter tree -> reference/port state dict (the inverse of
+    ``convert_ctunet``): the ViT branch from ``core`` to the top level."""
+    tree = _params(tree)
+    out = _Out()
+    _tunet_core(out, tree["core"])
+    out.resnet("convnet", tree["convnet"])
+    for k in (3, 2, 1):
+        dst, node = f"res_decoder{k}", tree[f"res_decoder{k}"]
+        out.transp(dst, node)
+        for i in (1, 2):
+            out.pixelweight(f"{dst}.pixelweight_attention{i}", node[f"pixelweight_attention{i}"])
+            out.resblock(f"{dst}.up_addconv_block{i}", node[f"up_addconv_block{i}"])
+    out.transp("res_decoder0", tree["res_decoder0"])
+    out.resblock("res_decoder0.conv_block", tree["res_decoder0"]["conv_block"])
+    out.res_heads(tree)
     return out.sd
 
 
@@ -137,9 +220,11 @@ def load_numpy_state_dict(model: nn.Module, sd: Mapping[str, np.ndarray]) -> Non
 @torch.no_grad()
 def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``seed`` with the JAX package's init
-    distributions: Linear weights N(0, 1/fan_in), conv weights
-    N(0, 2/fan_in), LayerNorm scale 1, biases 0, position embedding and
-    relative-position tables N(0, 1). Draws on the parameters' device."""
+    distributions: Linear weights N(0, 1/fan_in), conv and transposed-conv
+    weights N(0, 2/fan_in) (fan_in = k^3 Cin for both: a transposed conv's
+    weight is (Cin, Cout, k, k, k)), LayerNorm scale 1, biases 0, position
+    embedding and relative-position tables N(0, 1). Draws on the
+    parameters' device."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -150,6 +235,8 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             p.zero_()
         elif p.ndim == 1:  # LayerNorm scale
             p.fill_(1.0)
+        elif p.ndim == 5 and name.endswith("transp_conv.conv.weight"):  # (Cin, Cout, k, k, k)
+            p.normal_(0.0, math.sqrt(2.0 / (p.shape[0] * p[0, 0].numel())), generator=gen)
         elif p.ndim == 5:  # conv (Cout, Cin, k, k, k)
             p.normal_(0.0, math.sqrt(2.0 / (p[0].numel())), generator=gen)
         elif p.ndim == 2:  # Linear (out, in)

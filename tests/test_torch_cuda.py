@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_ctunet_tpu_torch.ops import attention, ffn, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatter, shuffle
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
 pytestmark = pytest.mark.cuda
@@ -85,8 +85,58 @@ def test_pixel_shuffle(dev, factor, c, f):
                 shuffle.reference_shuffle(x, w, b, factor, BF))
 
 
+@pytest.mark.parametrize("shape,k", [((2, 3, 5, 7, 256), (2, 2, 2)),
+                                     ((1, 5, 3, 9, 128), (2, 2, 1)),
+                                     ((3, 2, 2, 3, 1024), (2, 2, 2))])  # M 36 < one tile
+def test_transp_conv(dev, shape, k):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, *shape, dtype=BF, dev=dev)
+    cout = shape[-1] // 2
+    w = _randn(gen, shape[-1], cout, *k, std=shape[-1] ** -0.5, dev=dev)
+    got = shuffle.transp_conv_kxs(x, w, BF)
+    assert got.shape == (shape[0], shape[1] * k[0], shape[2] * k[1], shape[3] * k[2], cout)
+    _bf16_close(got, shuffle.reference_transp_conv(x, w, BF))
+
+
+@pytest.mark.parametrize("c,n", [(128, 1000), (256, 200), (512, 77)])  # ragged last tiles
+def test_pixelweight(dev, c, n):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x1, x2 = (_randn(gen, n, c, dtype=BF, dev=dev) for _ in range(2))
+    p = [1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
+         1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
+         _randn(gen, 3 * c, c, std=c ** -0.5, dev=dev), _randn(gen, 3 * c, c, std=c ** -0.5, dev=dev),
+         _randn(gen, c, c, std=c ** -0.5, dev=dev)]
+    _bf16_close(pixelweight.pixelweight(x1, x2, p, BF),
+                pixelweight.reference_pixelweight(x1, x2, p, BF))
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 9, 64),      # S 315: two splits
+                                   (4, 6, 6, 12, 1024),   # the deepest ResNet stage
+                                   (1, 23, 17, 29, 32),   # S 11339: not a multiple of the split
+                                   (2, 40, 40, 37, 128)])
+@pytest.mark.parametrize("act", [False, True])
+def test_instance_norm(dev, shape, act):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = (3.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    S = shape[1] * shape[2] * shape[3]
+    splits = norm.num_splits(shape[0], S, shape[-1])
+    assert splits >= 1
+    got = norm.instance_norm_leaky(x) if act else norm.instance_norm(x)
+    want = norm.reference_instance_norm(x)
+    if act:
+        want = torch.nn.functional.leaky_relu(want, 0.01)
+    _bf16_close(got, want)
+    again = norm.instance_norm_leaky(x) if act else norm.instance_norm(x)
+    assert torch.equal(got, again)  # fixed summation order: reproducible
+
+
 def test_wrappers_raise_on_unsupported(dev):
     x = torch.zeros(2, 64, device=dev, dtype=BF)
     p = [torch.zeros(s, device=dev) for s in (64, 64, (256, 64), 256, (64, 256), 64)]
     with pytest.raises(ValueError):
         ffn.ffn(x, *p, BF)  # C = 64 has no kernel instance
+    with pytest.raises(ValueError):
+        norm.instance_norm(torch.zeros(1, 2, 2, 2, 24, device=dev, dtype=BF))  # 3 vectors a row
+    with pytest.raises(ValueError):
+        shuffle.transp_conv_kxs(torch.zeros(1, 2, 2, 2, 48, device=dev, dtype=BF),
+                                torch.zeros(48, 64, 2, 2, 2, device=dev), BF)

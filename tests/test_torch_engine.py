@@ -77,3 +77,66 @@ def test_engine_rejects_bad_volume():
     engine = SlidingWindowEngine(lambda x: x, (8, 8, 8))
     with pytest.raises(ValueError):
         engine(torch.zeros(2, 8, 8, 8, 1))
+
+
+def test_hybrid_ensemble_matches_jax():
+    """The ensemble at the TINY size (CTUNet depth 50 res-only at overlap 0.5,
+    TUNet at 0.7, ROI 32^3, sw 2) on a (40, 36, 33) volume, 8 windows each.
+    Port engines + ``cli.bench.ensemble`` against the JAX engines +
+    ``bench.py``'s formula, the same weights in both (numpy, through the
+    ``*_state_dict_from_jax`` inverses). Probabilities at 1e-4 (the fp32
+    model forwards differ by the JAX z-fold sum orders, see
+    test_torch_ctunet.py); the mask equal wherever the top two mean
+    probabilities are more than 1e-4 apart."""
+    import jax
+
+    from hybrid_ctunet_tpu.models import CTUNet as JCTUNet
+    from hybrid_ctunet_tpu.models import TUNet as JTUNet
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
+    from hybrid_ctunet_tpu_torch.utils.params import (
+        ctunet_state_dict_from_jax, load_numpy_state_dict, tunet_state_dict_from_jax,
+    )
+    from test_torch_ctunet import TINY, _random_leaf
+
+    rng = np.random.default_rng(21)
+    roi, size = (32, 32, 32), (40, 36, 33)
+    vol = rng.standard_normal((1, *size, 1)).astype(np.float32)
+    jct, jtu = JCTUNet(model_depth=50, **TINY), JTUNet(**TINY)
+    patch = jnp.zeros((1, *roi, 1), jnp.float32)
+
+    def leaves(m):
+        shapes = jax.eval_shape(m.init, jax.random.PRNGKey(0), patch)["params"]
+        return jax.tree_util.tree_map_with_path(lambda p, s: _random_leaf(rng, p, s.shape), shapes)
+
+    p_ct, p_tu = leaves(jct), leaves(jtu)
+    jp_ct, jp_tu = (jax.tree_util.tree_map(jnp.asarray, p) for p in (p_ct, p_tu))
+
+    def ct_fwd(x):
+        (res, _, _), _ = jct.apply({"params": jp_ct}, x)
+        return res
+
+    def tu_fwd(x):
+        return jtu.apply({"params": jp_tu}, x)[0]
+
+    res_j = JEngine(ct_fwd, roi, sw_batch_size=2, overlap=0.5, mode="gaussian")(jnp.asarray(vol))
+    tu_j = JEngine(tu_fwd, roi, sw_batch_size=2, overlap=0.7, mode="gaussian")(jnp.asarray(vol))
+    res_j = res_j[0] if isinstance(res_j, (tuple, list)) else res_j
+    tu_j = tu_j[0] if isinstance(tu_j, (tuple, list)) else tu_j
+    prob_j = np.asarray((jax.nn.softmax(res_j, -1) + jax.nn.softmax(tu_j, -1)) / 2.0)
+    mask_j = np.asarray(jnp.argmax(prob_j, -1).astype(jnp.int32))
+
+    ct = CTUNet(model_depth=50, **TINY)
+    load_numpy_state_dict(ct, ctunet_state_dict_from_jax({"params": p_ct}))
+    tu = TUNet(**TINY)
+    load_numpy_state_dict(tu, tunet_state_dict_from_jax({"params": p_tu}))
+    ct_engine = bench.make_ctunet_engine(ct.eval(), roi=roi, sw=2)
+    tu_engine = bench.make_engine(tu.eval(), roi=roi, sw=2)
+    assert (len(ct_engine.plan(size)[3]), len(tu_engine.plan(size)[3])) == (8, 8)
+    res, tu_map, prob, mask = bench.segment_hybrid(ct_engine, tu_engine, torch.from_numpy(vol))
+    assert tuple(prob.shape) == (1, *size, 3) and mask.dtype == torch.int32
+    np.testing.assert_allclose(prob.numpy(), prob_j, atol=1e-4, rtol=1e-4)
+    top2 = np.sort(prob_j, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-4
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(mask.numpy()[clear], mask_j[clear])

@@ -1,6 +1,7 @@
 """The port loads no JAX: a fresh interpreter imports every module of
-``hybrid_ctunet_tpu_torch`` and runs the TINY slice (TUNet sliding-window
-inference through cli/bench.py's functions), then checks sys.modules."""
+``hybrid_ctunet_tpu_torch`` and runs the TINY ensemble (CTUNet depth 50 and
+TUNet sliding-window inference, softmax-mean, argmax, through cli/bench.py's
+functions), then checks sys.modules."""
 import subprocess
 import sys
 import textwrap
@@ -18,14 +19,16 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     from hybrid_ctunet_tpu_torch.cli import bench
 
-    model = bench.build_tunet(0, "cpu", dtype=torch.float32, out_channels=3,
-                              dim_conv_stem=16, img_size=(32, 32), frames=32,
-                              hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2,
-                              window=2)
-    engine = bench.make_engine(model, roi=(32, 32, 32), sw=2)
-    logits, mask = bench.segment(engine, bench.make_volume(0, (40, 36, 33), "cpu"))
-    assert tuple(logits.shape) == (1, 40, 36, 33, 3), logits.shape
-    assert torch.isfinite(logits).all() and tuple(mask.shape) == (1, 40, 36, 33)
+    tiny = dict(dtype=torch.float32, out_channels=3, dim_conv_stem=16, img_size=(32, 32),
+                frames=32, hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2, window=2)
+    tu = bench.make_engine(bench.build_tunet(0, "cpu", **tiny), roi=(32, 32, 32), sw=2)
+    ct = bench.make_ctunet_engine(bench.build_ctunet(0, "cpu", model_depth=50, **tiny),
+                                  roi=(32, 32, 32), sw=2)
+    vol = bench.make_volume(0, (40, 36, 33), "cpu")
+    res, logits, prob, mask = bench.segment_hybrid(ct, tu, vol)
+    for t in (res, logits, prob):
+        assert tuple(t.shape) == (1, 40, 36, 33, 3) and torch.isfinite(t).all(), t.shape
+    assert tuple(mask.shape) == (1, 40, 36, 33) and 0 <= mask.min() and mask.max() < 3
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     print(len(names), "modules;", "loaded:", loaded)
     assert not loaded, loaded

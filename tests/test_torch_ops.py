@@ -86,3 +86,65 @@ def test_gaussian_importance_map_equal(size, sigma):
     want = j_importance(size, sigma)
     assert got.dtype == np.float32 and got.shape == tuple(size)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k,s", [((2, 2, 2), (2, 2, 2)), ((2, 2, 1), (2, 2, 1)),
+                                 ((3, 3, 3), (2, 2, 2)), ((3, 3, 1), (2, 2, 1))])
+def test_conv_transpose3d_same_matches_jax(rng, k, s):
+    """k == s takes the einsum/K6 GEMM path in both packages; k != s the
+    general transposed conv with MONAI's padding and output padding."""
+    x = rng.standard_normal((2, 5, 4, 3, 6)).astype(np.float32)
+    w = rng.standard_normal((*k, 6, 4)).astype(np.float32)  # (k0, k1, k2, Cin, Cout)
+    want = np.asarray(j_conv.conv_transpose3d_same(jnp.asarray(x), jnp.asarray(w), s))
+    w_t = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 4, 0, 1, 2)))  # (Cin, Cout, k..)
+    got = conv.conv_transpose3d_same(torch.from_numpy(x), w_t, s).numpy()
+    assert got.shape == want.shape == (2, 5 * s[0], 4 * s[1], 3 * s[2], 4)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,s,p", [(2, 2, 0), (3, 2, 1), (3, 1, 1), ((2, 2, 1), (2, 2, 1), 0)])
+def test_transpose_output_padding_matches(k, s, p):
+    assert conv.transpose_output_padding(k, s, p) == j_conv.transpose_output_padding(k, s, p)
+
+
+@pytest.mark.parametrize("dt,tol", [("fp32", 1e-5), ("bf16", 2.0 ** -6)])
+def test_pixelweight_matches_jax(rng, dt, tol):
+    """Plain pixelweight against ``pixelweight_reference`` (fp32 1e-5; bf16:
+    both round at the same points, but XLA may keep the bf16 blend's
+    products in fp32 where torch rounds each, and sums in another order, so
+    values sit an ulp or two apart: 2^-6 relative, plus 2^-6 of the max)."""
+    from hybrid_ctunet_tpu.ops import pixelweight as j_pw
+    from hybrid_ctunet_tpu_torch.ops import pixelweight
+
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    C = 64
+    x1, x2 = (rng.standard_normal((2, 3, 4, 5, C)).astype(np.float32) for _ in range(2))
+    ln = [1 + 0.1 * rng.standard_normal(C), 0.1 * rng.standard_normal(C),
+          1 + 0.1 * rng.standard_normal(C), 0.1 * rng.standard_normal(C)]
+    wq1, wq2 = (rng.standard_normal((C, 3 * C)) / np.sqrt(C) for _ in range(2))
+    wo = rng.standard_normal((C, C)) / np.sqrt(C)
+    jp = j_pw.PixelweightParams(*(jnp.asarray(a, jnp.float32) for a in (*ln, wq1, wq2, wo)))
+    want = np.asarray(j_pw.pixelweight_reference(
+        jnp.asarray(x1, jdt), jnp.asarray(x2, jdt), jp, dtype=jdt).astype(jnp.float32))
+    tp = [torch.tensor(np.asarray(a, np.float32)) for a in (*ln, wq1.T, wq2.T, wo.T)]
+    got = pixelweight.pixelweight(torch.from_numpy(x1).to(tdt), torch.from_numpy(x2).to(tdt),
+                                  tp, tdt).float().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max(), rtol=tol)
+
+
+@pytest.mark.parametrize("act", [False, True])
+def test_instance_norm_on_offset_activations(rng, act):
+    """|mean| = 30 std, as after a conv with a large bias-like response (C4):
+    the single-pass fp32 form cancels ~log2(900) ~ 10 bits of the variance
+    in both packages, which sum 210 values in different orders, so the
+    normalized values (|y| <= 4) agree to 4e-3, not 1e-5; and a constant
+    channel gives 0, not NaN, because the variance is clamped."""
+    x = (30.0 + rng.standard_normal((2, 7, 6, 5, 16))).astype(np.float32)
+    x[1, ..., 3] = -81.0
+    j_fn = j_norm.instance_norm_leaky if act else j_norm.instance_norm
+    fn = norm.instance_norm_leaky if act else norm.instance_norm
+    want = np.asarray(j_fn(jnp.asarray(x)))
+    got = fn(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=4e-3, rtol=0)
+    assert np.isfinite(got).all() and np.abs(got[1, ..., 3]).max() < 1e-2
