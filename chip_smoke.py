@@ -13,21 +13,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K1 scatter must be bit-exact; the bf16 kernels must meet the stated
    tolerance), with CUDA-event times per 4-window chunk of the kernel, its
    plain version and, where one PyTorch call computes the same function,
-   that call (median of several runs); and each kernel's bound, the least
-   time an H100 could take for the same bytes and operations.
+   that call (median of 5 runs of 10 back-to-back calls); and each
+   kernel's bound, the least time an H100 could take for the same bytes and
+   operations.
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
    equal to the count the module tree implies; 2 timed volumes; one 4-window
    batch with every kernel call held to its plain version on the model's
    activations, and the output against the same model on plain versions.
-5. The main path, the Hybrid-CTUNet ensemble: full-width CTUNet (ResNet-101,
-   pf 8, 174,109,542 params, res head only, overlap 0.5, 50 windows) and the
+5. The Hybrid-CTUNet ensemble: full-width CTUNet (ResNet-101, pf 8,
+   174,109,542 params, res head only, overlap 0.5, 50 windows) and the
    TUNet, softmax-mean and argmax over the same volume; launch counts per
-   volume equal to the module tree's for all eight kernels; 2 timed
-   volumes; one 4-window CTUNet batch checked as the TUNet one (every gate
-   off for the plain run); one 4-window batch of full-width CUNet
-   (50,779,754 params).
+   volume equal to the module tree's for all nine kernels; 2 timed volumes;
+   one 4-window CTUNet batch checked as the TUNet one (every gate off for
+   the plain run); one 4-window batch of full-width CUNet (50,779,754
+   params).
+6. Training, this slice's main path (main_CTUNet.py): every kernel's
+   autograd.Function against its plain path's backward at the training
+   shapes; the full-width CTUNet trained on --synthetic data through the
+   port's train step at batch 4 x 96^3 in bf16, one warm-up and 5 timed
+   steps with launches per step equal to the module tree's and a finite
+   loss, and one profiled step; then ``cli/train_main.py`` end to end (two
+   epochs, a validation pass, the three best-metric checkpoints and
+   latest.pt, which must load back).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -37,6 +46,8 @@ from __future__ import annotations
 
 import collections
 import json
+import math
+import os
 import statistics
 import sys
 import time
@@ -51,10 +62,11 @@ BF16_REL_L2 = 1e-2
 # CTUNet is chaotic, see model_check.)
 MODEL_REL_L2 = 5e-2
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 bytes/s
-# and bf16 tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 bytes/s,
+# bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 CHUNK = 4  # windows per chunk (sw_batch_size)
 
 
@@ -62,8 +74,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def cuda_time_ms(fn, reps: int = 5, calls: int = 10) -> float:
+    """Milliseconds per call of ``fn``: after one warm-up, the median over
+    ``reps`` CUDA-event timings of ``calls`` back-to-back calls, divided by
+    ``calls``, so that the host's launch time between calls is hidden as it
+    is on the main path, where the host runs ahead of the card."""
     import torch
 
     fn()
@@ -73,10 +88,11 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -104,8 +120,10 @@ def check_bf16(name, got, want):
 class Tally:
     """One kernel's row: worst error, and per chunk the kernel, plain and
     library times and the bound, each summed over the chunk's calls. A
-    call's bound is max(bytes / HBM rate, FLOP / bf16 rate), bytes counting
-    each input read once and each output written once."""
+    call's bound is max(bytes / HBM rate, FLOP / bf16 rate, fp32 FLOP /
+    fp32 rate), bytes counting each input read once and each output written
+    once; the tensor cores and the fp32 units run side by side, so the
+    larger of their two times bounds the operations."""
 
     def __init__(self, library: bool):
         self.err = 0.0
@@ -113,14 +131,16 @@ class Tally:
         self.library_ms = 0.0 if library else None
         self.by = {"bytes": 0.0, "operations": 0.0}
 
-    def add(self, err, n, ms, plain_ms, nbytes, flops, library_ms=None):
-        """``n`` calls per chunk of one shape."""
+    def add(self, err, n, ms, plain_ms, nbytes, flops, library_ms=None, fp32_flops=0):
+        """``n`` calls per chunk of one shape; ``flops`` on the tensor cores
+        in bf16, ``fp32_flops`` outside them."""
         self.err = max(self.err, err)
         self.ms += n * ms
         self.plain_ms += n * plain_ms
         if self.library_ms is not None:
             self.library_ms += n * library_ms
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(flops / BF16_FLOP_PER_S, fp32_flops / FP32_FLOP_PER_S) * 1e3
         self.bound_ms += n * max(t_bytes, t_ops)
         self.by["bytes" if t_bytes >= t_ops else "operations"] += n * max(t_bytes, t_ops)
 
@@ -355,7 +375,84 @@ def phase_kernels(device):
         t.add(err, n, ms, plain, 2 * nbytes(x), 5 * x.numel(), lib)
         del x
     results["instance_norm"] = t.row()
+    results["conv3x3_winograd"] = winograd_rows(randn, nbytes)
     return results
+
+
+def winograd_rows(randn, nbytes):
+    """K9: the plain entry at the ResNet stage-1 conv2, (4,48,48,96,32) -> 32,
+    8 calls per chunk (the row); the fused entry (affine + LeakyReLU in, IN
+    sums out) at (4,96,96,96,32) -> 32, checked and timed beside it, its
+    sums bit-identical across two runs. Both against their plain versions
+    and against cuDNN ``F.conv3d`` on the same (affine'd) input."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.ops import winograd
+
+    bf = torch.bfloat16
+
+    def flops(x, w, fused=False):
+        """(bf16, fp32) FLOP of the F(2,3)^3 conv: per 2^3-output tile, 64
+        products of C by F on the tensor cores; in fp32 the separable
+        transforms, 192 adds per tile and channel for B^T d B and 112 per
+        tile and feature for A^T m A, and G g G^T on the filter; fused, 3
+        per input element (affine, LeakyReLU) and 3 per output (the sums)."""
+        C, Fo, tiles = x.shape[-1], w.shape[0], x[..., 0].numel() // 8
+        fp32 = tiles * (192 * C + 112 * Fo) + 2 * 64 * 27 * C * Fo
+        if fused:
+            fp32 += 3 * x.numel() + 3 * x[..., 0].numel() * Fo
+        return 2 * 64 * C * Fo * tiles, fp32
+
+    def check_cudnn(name, got, want):
+        rel = errors(got, want)[1]
+        log(f"  {name} vs cuDNN F.conv3d: rel_l2 {rel!r} (bound {BF16_REL_L2})")
+        if rel > BF16_REL_L2:
+            raise AssertionError(f"{name}: kernel disagrees with cuDNN")
+
+    x = randn(CHUNK, 48, 48, 96, 32, dtype=bf)
+    w = randn(32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5).to(bf)
+    got = winograd.conv3x3_winograd(x, w)
+    err = check_bf16("conv3x3_winograd (4,48,48,96,32)->32", got,
+                     winograd.reference_conv3x3_winograd(x, w))
+    check_cudnn("conv3x3_winograd", got, winograd.direct_conv3x3(x, w))
+    ms = cuda_time_ms(lambda: winograd.conv3x3_winograd(x, w))
+    plain = cuda_time_ms(lambda: winograd.reference_conv3x3_winograd(x, w))
+    lib = cuda_time_ms(lambda: winograd.direct_conv3x3(x, w))
+    log(f"  conv3x3_winograd: {ms!r} ms, plain {plain!r} ms, cuDNN {lib!r} ms per call")
+    t = Tally(library=True)
+    mm, fp32 = flops(x, w)
+    t.add(err, 8, ms, plain, nbytes(x, w, got), mm, lib, fp32_flops=fp32)
+    row = t.row()
+    del x, got
+
+    x = randn(CHUNK, 96, 96, 96, 32, dtype=bf, std=2.0, mean=0.5)
+    scale, bias = 1.0 + randn(CHUNK, 32, std=0.1), randn(CHUNK, 32, std=0.1)
+    run = lambda: winograd.conv3x3_winograd_fused(x, w, (scale, bias), in_act=True,
+                                                  emit_stats=True)
+    plain_fn = lambda: winograd.reference_conv3x3_winograd_fused(x, w, scale, bias, True, True)
+    lib_fn = lambda: winograd.direct_conv3x3(winograd.apply_affine(x, scale, bias, True), w)
+    y, s1, s2 = run()
+    py, ps1, ps2 = plain_fn()
+    ferr = check_bf16("conv3x3_winograd_fused (4,96,96,96,32)->32 y", y, py)
+    for name, a, b in (("s1", s1, ps1), ("s2", s2, ps2)):
+        rel = errors(a, b)[1]
+        log(f"  conv3x3_winograd_fused {name}: rel_l2 {rel!r} (bound {BF16_REL_L2})")
+        if rel > BF16_REL_L2:
+            raise AssertionError(f"conv3x3_winograd_fused {name} disagrees with its plain version")
+    check_cudnn("conv3x3_winograd_fused y", y, lib_fn())
+    again = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((y, s1, s2), again)):
+        raise AssertionError("conv3x3_winograd_fused: a rerun is not bit-identical")
+    log("  conv3x3_winograd_fused: rerun bit-identical (y, s1, s2)")
+    del py, ps1, ps2, again
+    fms, fplain, flib = cuda_time_ms(run), cuda_time_ms(plain_fn), cuda_time_ms(lib_fn)
+    log(f"  conv3x3_winograd_fused: {fms!r} ms, plain {fplain!r} ms, cuDNN (+ affine) {flib!r} ms")
+    f = Tally(library=True)
+    mm, fp32 = flops(x, w, fused=True)
+    f.add(ferr, 1, fms, fplain, nbytes(x, w, scale, bias, y, s1, s2), mm, flib, fp32_flops=fp32)
+    row["fused"] = {"shape": [CHUNK, 96, 96, 96, 32], **f.row()}
+    return row
 
 
 def tree_launches(model, res_only: bool = False):
@@ -366,7 +463,8 @@ def tree_launches(model, res_only: bool = False):
     a shuffle (K5) each, their FFNs K3 where hidden <= 1024 (stage 2; the
     wider ViT-side stages 0-1 stay plain, as in the JAX package), stage 3
     the FFN pair (K4) and a shuffle; each transposed conv is K6, each
-    pixelweight fusion K7; the engine's scatter (K1) runs once a chunk."""
+    pixelweight fusion K7; each 3^3 stride-1 conv of a 32-wide bottleneck
+    (the ResNet's stage 1) K9; the engine's scatter (K1) runs once a chunk."""
     from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet
     from hybrid_ctunet_tpu_torch.models import layers
     from hybrid_ctunet_tpu_torch.models.resnet3d import Bottleneck
@@ -386,7 +484,7 @@ def tree_launches(model, res_only: bool = False):
 
     got = {"scatter_add_windows": 1, "window_attention": 0, "ffn": 0, "ffn_pair": 0,
            "pixel_shuffle_linear": 0, "transp_conv_kxs": 0, "pixelweight": 0,
-           "instance_norm": 0}
+           "instance_norm": 0, "conv3x3_winograd": 0}
     if not isinstance(model, CUNet):
         stages = list(model.vit_encoder.layers[:3 if res_only else 4])
         got["window_attention"] = count(stages, layers.MultiAxisWindowAttention)
@@ -401,6 +499,10 @@ def tree_launches(model, res_only: bool = False):
         got["transp_conv_kxs"] = count(dec, layers.ConvTranspose3d)
         got["pixelweight"] = count(dec, layers.PixelweightFusion)
         got["instance_norm"] += 1 + norms([model.convnet, *dec])  # stem + blocks
+        # K9: the stride-1 3^3 conv2 of the 32-wide (stage-1) bottlenecks
+        got["conv3x3_winograd"] = sum(
+            isinstance(m, Bottleneck) and m.conv2.conv.weight.shape[1] == 32
+            and m.conv2.stride == (1, 1, 1) for m in model.convnet.modules())
     return got
 
 
@@ -421,13 +523,14 @@ def gates_off():
     plain version."""
     import contextlib
 
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle, winograd
 
     @contextlib.contextmanager
     def ctx():
         saved = [(m, n, getattr(m, n)) for m, n in (
             (attention, "supports"), (ffn, "supports"), (shuffle, "supports"),
-            (shuffle, "transp_supports"), (pixelweight, "supports"), (norm, "supports"))]
+            (shuffle, "transp_supports"), (pixelweight, "supports"), (norm, "supports"),
+            (winograd, "supports"))]
         for m, n, _ in saved:
             setattr(m, n, lambda *a, **k: False)
         try:
@@ -448,7 +551,7 @@ def per_call_checks():
 
     import torch.nn.functional as F
 
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle, winograd
 
     def plain_ffn(x, *p, residual=False):
         out = ffn.reference_ffn(x, *p)
@@ -465,6 +568,7 @@ def per_call_checks():
         (norm, "instance_norm_leaky",
          lambda x, eps=1e-5, negative_slope=0.01: F.leaky_relu(
              norm.reference_instance_norm(x, eps), negative_slope)),
+        (winograd, "conv3x3_winograd", winograd.reference_conv3x3_winograd),
     )
 
     @contextlib.contextmanager
@@ -681,6 +785,240 @@ def phase_hybrid(tunet, tu_engine, volume, device):
     return stats, hybrid_counts
 
 
+def grad_cases(device):
+    """(name, kernel wrapper, plain path, inputs) of every kernel with a
+    backward, at the training step's shapes (a 4-window batch at 96^3):
+    K2 at pyramid stages 0-2, K3 at stage 2, K4 at stage 3, K5 and K6 at
+    their sites' widths, K7 at C 128, K8 at 4x96^3x64 and at the deepest
+    stage, K9 at the ResNet stage-1 conv2 and its fused form at 96^3. The
+    plain path of K9 is the direct conv, which its backward differentiates."""
+    import torch
+    import torch.nn.functional as F
+
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle, winograd
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * std + mean).to(dtype)
+
+    def ffn_params(c, h):
+        return (1.0 + randn(c, std=0.1), randn(c, std=0.1), randn(h, c, std=c ** -0.5),
+                randn(h, std=0.1), randn(c, h, std=h ** -0.5), randn(c, std=0.1))
+
+    cases = []
+    for nwin, C in ((8, 768), (64, 512), (512, 256)):
+        qkv = randn(nwin, 216, 3 * C, dtype=bf)
+        cases.append((f"window_attention C{C}", lambda *a: attention.window_attention(*a, bf),
+                      lambda *a: attention.reference_window_attention(*a, bf),
+                      (qkv[..., :C] * 32 ** -0.5, qkv[..., C:2 * C], qkv[..., 2 * C:],
+                       randn(C // 32, 216, 216))))
+    cases.append(("ffn", lambda x, *p: ffn.ffn(x, *p, bf, residual=True),
+                  lambda x, *p: x + ffn.reference_ffn(x, *p, bf),
+                  (randn(CHUNK, 24, 24, 48, 256, dtype=bf), *ffn_params(256, 1024))))
+    cases.append(("ffn_pair", lambda x, *p: ffn.ffn_pair(x, p[:6], p[6:], bf),
+                  lambda x, *p: ffn.reference_ffn_pair(x, p[:6], p[6:], bf),
+                  (randn(CHUNK, 48, 48, 96, 128, dtype=bf), *ffn_params(128, 512),
+                   *ffn_params(128, 512))))
+    cases.append(("pixel_shuffle_linear", lambda *a: shuffle.pixel_shuffle_linear(*a, (2, 2, 1), bf),
+                  lambda *a: shuffle.reference_shuffle(*a, (2, 2, 1), bf),
+                  (randn(CHUNK, 48, 48, 96, 128, dtype=bf), randn(64, 32, std=32 ** -0.5),
+                   randn(64, std=0.1))))
+    cases.append(("transp_conv_kxs", lambda *a: shuffle.transp_conv_kxs(*a, bf),
+                  lambda *a: shuffle.reference_transp_conv(*a, bf),
+                  (randn(CHUNK, 24, 24, 48, 256, dtype=bf), randn(256, 128, 2, 2, 2, std=0.03))))
+    C = 128
+    cases.append(("pixelweight", lambda a, b, *p: pixelweight.pixelweight(a, b, p, bf),
+                  lambda a, b, *p: pixelweight.reference_pixelweight(a, b, p, bf),
+                  (randn(CHUNK, 48, 48, 96, C, dtype=bf), randn(CHUNK, 48, 48, 96, C, dtype=bf),
+                   1.0 + randn(C, std=0.1), randn(C, std=0.1), 1.0 + randn(C, std=0.1),
+                   randn(C, std=0.1), randn(3 * C, C, std=C ** -0.5),
+                   randn(3 * C, C, std=C ** -0.5), randn(C, C, std=C ** -0.5))))
+    for shape in ((CHUNK, 96, 96, 96, 64), (CHUNK, 6, 6, 12, 1024)):
+        cases.append((f"instance_norm_leaky {shape}", norm.instance_norm_leaky,
+                      lambda x: F.leaky_relu(norm.reference_instance_norm(x), 0.01),
+                      (randn(*shape, dtype=bf, std=2.0, mean=0.5),)))
+    cases.append((f"instance_norm {(CHUNK, 48, 48, 96, 128)}", norm.instance_norm,
+                  norm.reference_instance_norm,
+                  (randn(CHUNK, 48, 48, 96, 128, dtype=bf, std=2.0, mean=0.5),)))
+    w = randn(32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5)
+    cases.append(("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3,
+                  (randn(CHUNK, 48, 48, 96, 32, dtype=bf), w.to(bf))))
+    cases.append(("conv3x3_winograd_fused",
+                  lambda x, w, sc, bi: winograd.conv3x3_winograd_fused(
+                      x, w, (sc, bi), in_act=True, emit_stats=True),
+                  lambda x, w, sc, bi: winograd.direct_conv3x3_fused(x, w, sc, bi, True, True),
+                  (randn(CHUNK, 96, 96, 96, 32, dtype=bf), w.to(bf),
+                   1.0 + randn(CHUNK, 32, std=0.1), randn(CHUNK, 32, std=0.1))))
+    return cases
+
+
+def phase_train_grads(device):
+    """Each kernel's autograd.Function against its plain path's own
+    backward on the same inputs and output gradient: relative L2 <= 1e-6
+    (the backward recomputes through the plain path, so they are equal; cuDNN
+    is set deterministic for K9's direct conv)."""
+    import torch
+
+    def grads(fn, inputs, seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * torch.randn(o.shape, generator=gen, device=device)).sum()
+                   for o in outs)
+        return torch.autograd.grad(loss, leaves)
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    worst = {}
+    try:
+        for name, kernel_fn, plain_fn, inputs in grad_cases(device):
+            got = grads(kernel_fn, inputs, SEED + 21)
+            want = grads(plain_fn, inputs, SEED + 21)
+            rel = max(errors(g, w)[1] for g, w in zip(got, want))
+            worst[name] = rel
+            log(f"  {name}: {len(got)} gradients, worst rel_l2 vs the plain backward {rel!r}")
+            if not rel <= 1e-6:
+                raise AssertionError(f"{name}: gradient differs from the plain path's")
+            del got, want
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_args(extra=()):
+    """main_CTUNet.py's arguments for the slice: ResNet-101, pf 8, the CLI
+    defaults otherwise (ROI 96^3, batch 1 x 4 crops, AMP -> bf16, AdamW)."""
+    from hybrid_ctunet_tpu_torch.cli.args import build_train_parser
+
+    return build_train_parser("ctunet").parse_args(
+        ["--model_depths", "101", "--patch_frame", "8", *extra])
+
+
+def phase_train_steps(device, steps_timed: int = 5):
+    """The full-width CTUNet trained on --synthetic data through the port's
+    train step: one warm-up step and ``steps_timed`` timed ones (host clock
+    around each, ending in a synchronize), per-step launches equal to the
+    module tree's for the full five-output forward, a finite loss at every
+    step, and the peak memory of the timed steps; then one more step under
+    ``torch.profiler`` (its kernels by device time)."""
+    import tempfile
+
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import bench, factory
+    from hybrid_ctunet_tpu_torch.data.loader import get_loader
+    from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
+    from hybrid_ctunet_tpu_torch.train.schedule import make_epoch_schedule
+    from hybrid_ctunet_tpu_torch.train.steps import make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_args(["--synthetic", "--data_dir", tmp])
+        args.model_name = "ctunet"
+        args.json_list = os.path.basename(write_synthetic_dataset(tmp))
+        loader, _ = get_loader(args)
+        model = factory.build_model(args, device)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  CTUNet params {n_params}, batch {args.batch_size} x 4 crops of "
+            f"{(args.roi_x, args.roi_y, args.roi_z)}, {model.dtype} compute, {args.optim_name}")
+        if n_params != 174_109_542:
+            raise AssertionError(f"CTUNet has {n_params} params, expected 174109542")
+        step = make_train_step("ctunet", model, factory.build_optimizer(args, model),
+                               smooth_nr=args.smooth_nr, smooth_dr=args.smooth_dr)
+        lr = make_epoch_schedule(args.lrschedule, base_lr=args.optim_lr,
+                                 warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs)(1)
+        tree = tree_launches(model)
+        tree["scatter_add_windows"] = 0  # no engine in a train step
+        batches = []
+        epoch = 0
+        while len(batches) < 1 + steps_timed:
+            loader.set_epoch(epoch)
+            batches += list(loader)
+            epoch += 1
+    times, losses, per_step = [], [], []
+    for i, (image, label) in enumerate(batches[:1 + steps_timed]):
+        x = torch.from_numpy(image).to(device)
+        y = torch.from_numpy(label).to(device)
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(x, y, lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        loss = metrics["loss"].item()
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: {dt!r} s, loss {loss!r} "
+            f"(loss1 {metrics['loss1'].item()!r}, loss2 {metrics['loss2'].item()!r})")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {loss}")
+        check_launches(f"train step {i}", counts, [(tree, 1)])
+        losses.append(loss)
+        if i:
+            times.append(dt)
+        per_step = counts
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  timed steps {times!r} s (mean {statistics.mean(times)!r}), peak memory {peak} B")
+    prof = bench.profile_device(lambda: step(x, y, lr))
+    log(f"  one step under torch.profiler: wall {prof['wall_s']!r} s, kernels "
+        f"{prof['kernel_ms']!r} ms, busy {prof['busy_share']!r}")
+    log(json.dumps({"train_step_profile": prof}))
+    del model, step
+    torch.cuda.empty_cache()
+    return {"seconds_per_step": times, "mean_s": statistics.mean(times), "losses": losses,
+            "peak_mem_bytes": peak, "launches_per_step": per_step}
+
+
+def phase_train_cli(device):
+    """``train_main`` end to end, as main_CTUNet.py runs it: --synthetic,
+    two epochs, validation at the second, the three best-metric files and
+    latest.pt, which must load back into a fresh CTUNet. Every kernel,
+    K1 (validation) included, launches in the run."""
+    import tempfile
+
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import factory, train_main
+    from hybrid_ctunet_tpu_torch.train.checkpoint import load_weights
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--model_depths", "101", "--patch_frame", "8", "--synthetic",
+                "--max_epochs", "2", "--val_every", "2", "--warmup_epochs", "1",
+                "--save_checkpoint", "--data_dir", os.path.join(tmp, "data"),
+                "--logdir", os.path.join(tmp, "logs")]
+        log(f"  train_main {' '.join(argv)}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        best = train_main.main("ctunet", argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        files = sorted(os.listdir(os.path.join(tmp, "logs")))
+        log(f"  {wall!r} s; best {best}; files {files}; launches {counts}")
+        missing = {"model_hybrid.pt", "model_res.pt", "model_vit.pt", "latest.pt"} - set(files)
+        if missing:
+            raise AssertionError(f"train_main did not write {sorted(missing)}")
+        if not all(counts.values()):
+            raise AssertionError(f"a kernel was not launched in the CLI run: {counts}")
+        fresh = factory.build_model(train_args(), device)
+        ckpt = load_weights(fresh, os.path.join(tmp, "logs", "latest.pt"))
+        if ckpt["epoch"] != 2 or not all(torch.isfinite(p).all() for p in fresh.parameters()):
+            raise AssertionError(f"latest.pt: epoch {ckpt['epoch']} or non-finite weights")
+        log(f"  latest.pt loads into a fresh CTUNet (epoch {ckpt['epoch']}, "
+            f"{len(ckpt['state_dict'])} tensors)")
+        del fresh, ckpt
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "best": best, "launches": counts}
+
+
 def main() -> int:
     import torch
 
@@ -710,14 +1048,23 @@ def main() -> int:
     log("phase 4: TUNet sliding-window slice")
     tunet, tu_engine, volume, tu_stats = phase_tunet(device)
 
-    log("phase 5: Hybrid-CTUNet ensemble (the main path)")
+    log("phase 5: Hybrid-CTUNet ensemble")
     hy_stats, counts = phase_hybrid(tunet, tu_engine, volume, device)
+    del tunet, tu_engine, volume
+    torch.cuda.empty_cache()
+
+    log("phase 6: training (the slice's main path)")
+    grads = phase_train_grads(device)
+    train = phase_train_steps(device)
+    cli = phase_train_cli(device)
 
     entries = []
     for info in kernels.KERNELS:
         entries.append({
             "name": info.name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": counts[info.name], **results[info.name],
+            "train_launches_per_step": train["launches_per_step"][info.name],
+            "train_cli_launches": cli["launches"][info.name],
         })
     log(json.dumps({
         "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
@@ -725,6 +1072,9 @@ def main() -> int:
                                             "peak_mem_bytes")},
         "tunet_slice": {k: tu_stats[k] for k in ("seconds_per_volume", "volumes_per_min",
                                                  "peak_mem_bytes")},
+        "train": {**{k: train[k] for k in ("seconds_per_step", "mean_s", "losses",
+                                          "peak_mem_bytes")},
+                  "grad_worst_rel_l2": grads, "cli_wall_s": cli["wall_s"]},
     }))
     log(card)
     log(json.dumps({"kernels": entries}))

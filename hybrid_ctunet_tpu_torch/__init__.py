@@ -4,20 +4,29 @@ The JAX package beside it is the reference this port is held against. The
 port imports ``torch`` and numpy only, never ``jax`` or ``flax``.
 
 - ``ops``     — activations, norms, SAME-padded conv and transposed conv,
-                gaussian importance map, and the kernel modules (scatter,
-                window attention, FFN, pixel shuffle and k==s transposed
-                conv, pixelweight, InstanceNorm), each a plain PyTorch
+                gaussian importance map, DiceCE loss, label downscaling, and
+                the kernel modules (scatter, window attention, FFN, pixel
+                shuffle and k==s transposed conv, pixelweight,
+                InstanceNorm, Winograd 3^3 conv), each a plain PyTorch
                 version plus a wrapper that launches a hand-written Hopper
-                kernel on CUDA tensors.
+                kernel on CUDA tensors, differentiable through the plain
+                version (the scatter, used only in inference, excepted).
 - ``models``  — TUNet, ResNet3D, CUNet and CTUNet as ``nn.Module``s with the
                 reference's parameter names.
 - ``infer``   — the sliding-window engine with gaussian blending.
+- ``data``    — NIfTI I/O, the reference's transform chains, the cached
+                dataset and the seeded train loader (numpy).
+- ``train``   — LR schedules, optimizers, the losses and train step,
+                reference-format checkpoints, the training loop.
+- ``eval``    — per-organ Dice and HD95.
 - ``kernels`` — nvcc build of ``csrc/*.cu`` into ctypes libraries, and the
                 table of kernels with their launch counts.
-- ``utils``   — weight carry-over from the JAX parameter trees, random init.
-- ``cli``     — ``bench``: the Hybrid-CTUNet ensemble on one volume.
+- ``utils``   — weight carry-over from the JAX parameter trees, random init,
+                scalar logging.
+- ``cli``     — ``bench``: the Hybrid-CTUNet ensemble on one volume;
+                ``train_main``: the reference's training entry point.
 
 Public functions keep the JAX package's channels-last (NDHWC) layout.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

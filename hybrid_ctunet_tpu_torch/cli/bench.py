@@ -192,15 +192,21 @@ def time_hybrid(ct_engine: SlidingWindowEngine, tu_engine: SlidingWindowEngine,
 
 
 def profile_half(engine: SlidingWindowEngine, volume: torch.Tensor) -> Dict:
-    """One warm volume of ``engine`` under ``torch.profiler``: wall seconds,
-    summed device kernel time, and the 30 kernels with the most device time."""
+    """One warm volume of ``engine`` under ``torch.profiler``."""
+    return profile_device(lambda: segment(engine, volume))
+
+
+def profile_device(fn) -> Dict:
+    """``fn()`` once to warm up, then once under ``torch.profiler``: wall
+    seconds, summed device kernel time, and the 30 kernels with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    segment(engine, volume)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        segment(engine, volume)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("scatter", "window_attention", "ffn", "pixel_shuffle", "transp_conv", "pixelweight",
-           "instance_norm")
+           "instance_norm", "winograd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -73,6 +73,9 @@ KERNELS: Tuple[KernelInfo, ...] = (
     KernelInfo("instance_norm", "ops.norm",
                "hybrid_ctunet_tpu_torch/csrc/instance_norm.cu",
                "hybrid_ctunet_tpu/ops/norm_pallas.py:45"),
+    KernelInfo("conv3x3_winograd", "ops.winograd",
+               "hybrid_ctunet_tpu_torch/csrc/winograd.cu",
+               "hybrid_ctunet_tpu/ops/winograd_pallas.py:210"),
 )
 
 

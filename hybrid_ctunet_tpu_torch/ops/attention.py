@@ -4,7 +4,8 @@ K2). Port of ``hybrid_ctunet_tpu/ops/attention_pallas.py``.
 The QKV and output projections and the window partition stay in plain
 PyTorch (models/layers.py); the kernel computes per window and head
 ``softmax(q k^T + bias) v`` with q pre-scaled, fp32 scores and softmax, and
-the probabilities cast to the compute dtype before the PV product.
+the probabilities cast to the compute dtype before the PV product. The
+backward recomputes through the plain version (``attention_pallas.py:92-106``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from .recompute import recompute
 
 _DH = 32  # csrc/window_attention.cu DH
 _TMAX = 224  # csrc/window_attention.cu TP
@@ -56,7 +58,8 @@ def window_attention(q, k, v, bias, dtype):
     """q (pre-scaled), k, v: (n_windows, T, heads*dh) in ``dtype``, rows may
     be strided views of one qkv tensor; bias: (heads, T, T) fp32. Returns
     (n_windows, T, heads*dh) in ``dtype``. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/window_attention.cu``."""
+    CUDA tensors launch ``csrc/window_attention.cu``, differentiable through
+    the plain version."""
     if not q.is_cuda:
         return reference_window_attention(q, k, v, bias, dtype)
     n, t, c = q.shape
@@ -67,8 +70,14 @@ def window_attention(q, k, v, bias, dtype):
         raise ValueError("q, k, v must share shape, dtype and a CUDA device")
     if bias.dtype != torch.float32 or tuple(bias.shape) != (heads, t, t):
         raise ValueError(f"bias must be float32 ({heads}, {t}, {t})")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias)):
-        raise RuntimeError("window_attention has no backward")
+    return recompute(
+        lambda q, k, v, bias: _launch(q, k, v, bias, heads, dtype),
+        lambda q, k, v, bias: reference_window_attention(q, k, v, bias, dtype),
+        q, k, v, bias)
+
+
+def _launch(q, k, v, bias, heads, dtype):
+    n, t, c = q.shape
     bias = bias.contiguous()
     out = torch.empty((n, t, c), dtype=dtype, device=q.device)
     fn = kernels.bind(

@@ -6,6 +6,8 @@ points (the JAX ``reference_ffn``): fp32 LN (eps 1e-5) rounded to x's dtype;
 each matmul sums in fp32 and is rounded to the compute dtype before its
 bias, cast to the compute dtype, is added; GELU runs on the rounded value.
 ``F.linear(x, w, b)`` would add the bias before rounding, so it is not used.
+Both kernels' backward recomputes through the plain version
+(``ffn_pallas.py:177-201`` and ``:253-274``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from .. import kernels
 from .act import gelu_exact
 from .norm import layer_norm
+from .recompute import recompute
 
 _HC = 64  # csrc/ffn.cu HC: hidden chunk
 
@@ -63,10 +66,6 @@ def _prepare(x, params_list, dtype):
     hidden = params_list[0][2].shape[0]
     if not supports(c, hidden, dtype):
         raise ValueError(f"ffn kernel: unsupported C={c} hidden={hidden} {dtype}")
-    if torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for p in params_list for t in p)
-    ):
-        raise RuntimeError("the ffn kernels have no backward")
     x2d = x.reshape(-1, c).contiguous()
     prepared = [_kernel_params(p, c, hidden, dtype) for p in params_list]
     for p in prepared:
@@ -77,11 +76,20 @@ def _prepare(x, params_list, dtype):
 
 def ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype, residual: bool = False):
     """x (..., C) -> FFN(x), or x + FFN(x) with ``residual``. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/ffn.cu``."""
-    if not x.is_cuda:
-        out = reference_ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype)
+    the plain version; CUDA tensors launch ``csrc/ffn.cu``, differentiable
+    through the plain version."""
+    def plain(x, *p):
+        out = reference_ffn(x, *p, dtype)
         return x + out if residual else out
-    x2d, c, hidden, (p,) = _prepare(x, [(ln_w, ln_b, w1, b1, w2, b2)], dtype)
+
+    if not x.is_cuda:
+        return plain(x, ln_w, ln_b, w1, b1, w2, b2)
+    return recompute(lambda x, *p: _launch_ffn(x, p, dtype, residual), plain,
+                     x, ln_w, ln_b, w1, b1, w2, b2)
+
+
+def _launch_ffn(x, params, dtype, residual):
+    x2d, c, hidden, (p,) = _prepare(x, [params], dtype)
     out = torch.empty_like(x2d)
     fn = kernels.bind(
         "ffn", "ffn", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -103,6 +111,14 @@ def ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
     tensors launch ``csrc/ffn.cu`` with y kept on chip."""
     if not x.is_cuda:
         return reference_ffn_pair(x, params1, params2, dtype)
+    n = len(params1)
+    return recompute(
+        lambda x, *p: _launch_pair(x, p[:n], p[n:], dtype),
+        lambda x, *p: reference_ffn_pair(x, p[:n], p[n:], dtype),
+        x, *params1, *params2)
+
+
+def _launch_pair(x, params1, params2, dtype):
     x2d, c, hidden, (p1, p2) = _prepare(x, [tuple(params1), tuple(params2)], dtype)
     if p2[2].shape[0] != hidden:
         raise ValueError("both FFNs of the pair must have the same hidden width")

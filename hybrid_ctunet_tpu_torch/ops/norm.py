@@ -8,7 +8,8 @@ InstanceNorm (+ LeakyReLU) is kernel module K8: ``instance_norm`` and
 ``csrc/instance_norm.cu`` for CUDA tensors (the port of
 ``hybrid_ctunet_tpu/ops/norm_pallas.py``). Both follow the JAX default path
 (``ops/norm.py:32-58``), not the Pallas kernel: the variance is clamped at 0
-and y is rounded to the activation dtype before the LeakyReLU.
+and y is rounded to the activation dtype before the LeakyReLU. The backward
+recomputes through the plain version (``norm_pallas.py:98-114``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .act import leaky_relu
+from .recompute import recompute
 
 _THREADS = 256  # csrc/instance_norm.cu: threads per block
 _SMS = 132  # H100 SXM streaming multiprocessors
@@ -62,8 +64,6 @@ def _launch(x: torch.Tensor, eps: float, negative_slope) -> torch.Tensor:
     fixed-order combine, normalize [+ LeakyReLU]."""
     if not supports(x):
         raise ValueError(f"instance_norm kernel: unsupported {x.dtype} {tuple(x.shape)}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("instance_norm has no backward")
     x = x.contiguous()
     B, C = x.shape[0], x.shape[-1]
     S = x.shape[1] * x.shape[2] * x.shape[3]
@@ -86,10 +86,11 @@ def _launch(x: torch.Tensor, eps: float, negative_slope) -> torch.Tensor:
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Affine-free InstanceNorm of (B, X, Y, Z, C). CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/instance_norm.cu``."""
+    plain version; CUDA tensors launch ``csrc/instance_norm.cu``,
+    differentiable through the plain version."""
     if not x.is_cuda:
         return reference_instance_norm(x, eps)
-    return _launch(x, eps, None)
+    return recompute(lambda x: _launch(x, eps, None), lambda x: reference_instance_norm(x, eps), x)
 
 
 instance_norm.launches = 0
@@ -100,9 +101,12 @@ def instance_norm_leaky(
 ) -> torch.Tensor:
     """InstanceNorm + LeakyReLU, the conv-path epilogue; the same kernel
     (counted on ``instance_norm``) with the activation in its store."""
-    if not x.is_cuda:
+    def plain(x):
         return leaky_relu(reference_instance_norm(x, eps), negative_slope)
-    return _launch(x, eps, negative_slope)
+
+    if not x.is_cuda:
+        return plain(x)
+    return recompute(lambda x: _launch(x, eps, negative_slope), plain, x)
 
 
 def layer_norm(

@@ -11,7 +11,8 @@ wqkv1, wqkv2, wout)`` with the projections in torch's Linear layout
 Rounding points are ``pixelweight_reference``'s (the JAX CPU path): LN
 output and q/k/v rounded to the compute dtype, each q2*k1 product rounded
 before the fp32 head sum, softmax weights rounded, the blend in the compute
-dtype. The TPU's Pallas kernel kept LN, q/k/v and the blend in fp32.
+dtype. The TPU's Pallas kernel kept LN, q/k/v and the blend in fp32. The
+backward recomputes through the plain version (``pixelweight.py:177-197``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .recompute import recompute
 
 DIM_HEAD = 32
 
@@ -59,7 +61,8 @@ def supports(c: int, dtype, dim_head: int = DIM_HEAD) -> bool:
 
 def pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_HEAD):
     """x1, x2 (..., C) -> (..., C). CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/pixelweight.cu``."""
+    tensors launch ``csrc/pixelweight.cu``, differentiable through the plain
+    version."""
     if not x1.is_cuda:
         return reference_pixelweight(x1, x2, params, dtype, dim_head)
     C = x1.shape[-1]
@@ -68,8 +71,14 @@ def pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_HEAD):
                          f"{tuple(x2.shape)} dim_head={dim_head} {dtype}")
     if x1.dtype != dtype or x2.dtype != dtype:
         raise TypeError(f"inputs are {x1.dtype}/{x2.dtype}, compute dtype {dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x1, x2, *params)):
-        raise RuntimeError("pixelweight has no backward")
+    return recompute(
+        lambda x1, x2, *p: _launch(x1, x2, p, dtype),
+        lambda x1, x2, *p: reference_pixelweight(x1, x2, p, dtype, dim_head),
+        x1, x2, *params)
+
+
+def _launch(x1, x2, params, dtype):
+    C = x1.shape[-1]
     ln1w, ln1b, ln2w, ln2b, wqkv1, wqkv2, wout = params
     if tuple(wqkv1.shape) != (3 * C, C) or tuple(wqkv2.shape) != (3 * C, C) \
             or tuple(wout.shape) != (C, C):

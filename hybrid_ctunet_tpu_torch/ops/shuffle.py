@@ -9,6 +9,9 @@ K6, the bias-free kernel == stride ConvTranspose3d (``reference_transp_kxs``,
 ``fused_transp_conv``): one GEMM Cin -> (k0, k1, k2, Cout) per input voxel,
 each sub-position's Cout slice stored at (x*k0+i, y*k1+j, z*k2+l). ``w`` is
 in torch's ConvTranspose3d layout (Cin, Cout, k0, k1, k2).
+
+Both kernels' backward recomputes through the plain version
+(``shuffle_pallas.py:156-177`` and ``:239-266``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
+from .recompute import recompute
 
 _BM = 64  # csrc/pixel_shuffle.cu: GEMM rows per block
 _BN = 64  # output features per block
@@ -48,7 +52,8 @@ def supports(c: int, factor: Tuple[int, int, int], features: int, dtype) -> bool
 
 def pixel_shuffle_linear(x, w, b, factor: Tuple[int, int, int], dtype):
     """x (B, X, Y, Z, C) -> (B, X*f0, Y*f1, Z*f2, F). CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/pixel_shuffle.cu``."""
+    plain version; CUDA tensors launch ``csrc/pixel_shuffle.cu``, differentiable
+    through the plain version."""
     if not x.is_cuda:
         return reference_shuffle(x, w, b, factor, dtype)
     B, X, Y, Z, C = x.shape
@@ -59,8 +64,16 @@ def pixel_shuffle_linear(x, w, b, factor: Tuple[int, int, int], dtype):
                          f"F={F} {dtype}")
     if x.dtype != dtype:
         raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
-        raise RuntimeError("pixel_shuffle_linear has no backward")
+    return recompute(
+        lambda x, w, b: _launch_shuffle(x, w, b, (f0, f1, f2), dtype),
+        lambda x, w, b: reference_shuffle(x, w, b, factor, dtype),
+        x, w, b)
+
+
+def _launch_shuffle(x, w, b, factor, dtype):
+    B, X, Y, Z, C = x.shape
+    f0, f1, f2 = factor
+    F, cp = w.shape
     x = x.contiguous()
     wk = w.to(dtype).contiguous()
     bk = b.to(dtype).contiguous()
@@ -109,7 +122,7 @@ def transp_supports(x_shape, w_shape, dtype) -> bool:
 def transp_conv_kxs(x, w, dtype):
     """k == s transposed conv, x (B, X, Y, Z, Cin) -> (B, X*k0, Y*k1, Z*k2,
     Cout). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/transp_conv.cu``."""
+    ``csrc/transp_conv.cu``, differentiable through the plain version."""
     if not x.is_cuda:
         return reference_transp_conv(x, w, dtype)
     if not transp_supports(x.shape, w.shape, dtype):
@@ -117,8 +130,11 @@ def transp_conv_kxs(x, w, dtype):
                          f"{dtype}")
     if x.dtype != dtype:
         raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError("transp_conv_kxs has no backward")
+    return recompute(lambda x, w: _launch_transp(x, w, dtype),
+                     lambda x, w: reference_transp_conv(x, w, dtype), x, w)
+
+
+def _launch_transp(x, w, dtype):
     B, X, Y, Z, cin = x.shape
     _, cout, k0, k1, k2 = (int(v) for v in w.shape)
     x = x.contiguous()

@@ -1,0 +1,92 @@
+"""The train step with the reference's loss structure. Port of
+``hybrid_ctunet_tpu/train/steps.py``.
+
+Channels-last batches: image (B, X, Y, Z, 1), label (B, X, Y, Z, 1).
+
+- CUNet  (trainer_CUNet.py:91-100):
+    L = DiceCE(out0, y) + 0.5 (DiceCE(out1, y_half) + 0.5 DiceCE(out2, y_quarter)),
+  y_half the nearest zoom (.5, .5, 1) of y, y_quarter (.25, .25, .5), on the
+  device;
+- TUNet  (trainer_TUNet.py:78-82): L = DiceCE(v0, y) + DiceCE(v1, y);
+- CTUNet (trainer_CTUNet.py:90-103): L = L_cunet + 0.5 L_tunet.
+
+A step is forward, loss, backward and one optimizer update at the epoch's
+LR. ``grad_accum`` splits the batch into microbatches whose gradients add up
+before the one update: exact, since neither InstanceNorm nor the losses
+couple samples.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..ops.losses import dice_ce_loss
+from ..ops.resize import downscale_labels
+from .state import set_learning_rate
+
+
+def deep_supervision_loss(outs, label, *, smooth_nr=0.0, smooth_dr=1e-6):
+    """CUNet's loss over the (full, 1/2, 1/4) heads."""
+    out0, out1, out2 = outs
+    y1 = downscale_labels(label, (0.5, 0.5, 1.0))
+    y2 = downscale_labels(label, (0.25, 0.25, 0.5))
+    kw = dict(smooth_nr=smooth_nr, smooth_dr=smooth_dr)
+    l0 = dice_ce_loss(out0, label, **kw)
+    l1 = dice_ce_loss(out1, y1, **kw)
+    l2 = dice_ce_loss(out2, y2, **kw)
+    return l0 + 0.5 * (l1 + 0.5 * l2)
+
+
+def dual_head_loss(outs, label, *, smooth_nr=0.0, smooth_dr=1e-6):
+    """TUNet's loss: both full-resolution heads against the label."""
+    v0, v1 = outs
+    kw = dict(smooth_nr=smooth_nr, smooth_dr=smooth_dr)
+    return dice_ce_loss(v0, label, **kw) + dice_ce_loss(v1, label, **kw)
+
+
+def cunet_loss_fn(outs, label, **kw):
+    return deep_supervision_loss(outs, label, **kw), {}
+
+
+def tunet_loss_fn(outs, label, **kw):
+    return dual_head_loss(outs, label, **kw), {}
+
+
+def ctunet_loss_fn(outs, label, **kw):
+    res_outs, vit_outs = outs
+    loss1 = deep_supervision_loss(res_outs, label, **kw)
+    loss2 = dual_head_loss(vit_outs, label, **kw)
+    return loss1 + 0.5 * loss2, {"loss1": loss1, "loss2": loss2}
+
+
+LOSS_FNS = {"cunet": cunet_loss_fn, "tunet": tunet_loss_fn, "ctunet": ctunet_loss_fn}
+
+
+def make_train_step(model_name: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    *, smooth_nr: float = 0.0, smooth_dr: float = 1e-6,
+                    grad_accum: int = 1) -> Callable:
+    """``step(image, label, lr) -> {"loss": ..., **aux}``: tensors on
+    ``image``'s device, detached; the model's parameters and the optimizer
+    state are updated in place."""
+    loss_impl = LOSS_FNS[model_name]
+
+    def step(image: torch.Tensor, label: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
+        B = image.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} not divisible by grad_accum {grad_accum}")
+        mb = B // grad_accum
+        optimizer.zero_grad(set_to_none=True)
+        metrics: Dict[str, torch.Tensor] = {}
+        for i in range(grad_accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss, aux = loss_impl(model(image[sl]), label[sl], smooth_nr=smooth_nr,
+                                  smooth_dr=smooth_dr)
+            (loss / grad_accum).backward()
+            for k, v in {"loss": loss, **aux}.items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach() / grad_accum
+        set_learning_rate(optimizer, lr)
+        optimizer.step()
+        return metrics
+
+    return step

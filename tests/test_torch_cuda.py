@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops import (attention, ffn, norm, pixelweight, scatter, shuffle,
+                                         winograd)
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
 pytestmark = pytest.mark.cuda
@@ -140,3 +141,112 @@ def test_wrappers_raise_on_unsupported(dev):
     with pytest.raises(ValueError):
         shuffle.transp_conv_kxs(torch.zeros(1, 2, 2, 2, 48, device=dev, dtype=BF),
                                 torch.zeros(48, 64, 2, 2, 2, device=dev), BF)
+
+
+@pytest.mark.parametrize("shape,f", [((2, 6, 10, 12, 32), 32),    # ragged tile blocks
+                                     ((1, 8, 8, 16, 32), 64),
+                                     ((1, 4, 6, 8, 32), 128)])
+def test_winograd(dev, shape, f):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _randn(gen, *shape, dtype=BF, dev=dev)
+    w = _randn(gen, f, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5, dev=dev)
+    got = winograd.conv3x3_winograd(x, w)
+    _bf16_close(got, winograd.reference_conv3x3_winograd(x, w))
+    _bf16_close(got, winograd.direct_conv3x3(x, w.to(BF)))
+
+
+def test_conv3d_same_routes_bf16_sites_to_k9(dev):
+    """On the card conv3d_same hands a gated bf16 conv to K9 and everything
+    else (fp32, stride 2) to the direct conv."""
+    from hybrid_ctunet_tpu_torch.ops import conv as conv_ops
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(gen, 1, 4, 4, 6, 32, dev=dev)
+    w = _randn(gen, 64, 32, 3, 3, 3, std=0.05, dev=dev)
+    before = winograd.conv3x3_winograd.launches
+    conv_ops.conv3d_same(x, w)
+    conv_ops.conv3d_same(x.to(BF), w.to(BF), stride=2)
+    assert winograd.conv3x3_winograd.launches == before
+    _bf16_close(conv_ops.conv3d_same(x.to(BF), w.to(BF)), winograd.direct_conv3x3(x.to(BF), w))
+    assert winograd.conv3x3_winograd.launches == before + 1
+
+
+def test_winograd_fused_stats_reproducible(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(gen, 2, 6, 10, 12, 32, dtype=BF, dev=dev)
+    w = _randn(gen, 32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5, dev=dev)
+    scale, bias = 1 + _randn(gen, 2, 32, std=0.1, dev=dev), _randn(gen, 2, 32, std=0.1, dev=dev)
+    got = winograd.conv3x3_winograd_fused(x, w, (scale, bias), in_act=True, emit_stats=True)
+    want = winograd.reference_conv3x3_winograd_fused(x, w, scale, bias, True, True)
+    _bf16_close(got[0], want[0])
+    for g, p in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, p, rtol=1e-2, atol=1e-2 * p.abs().max().item())
+    again = winograd.conv3x3_winograd_fused(x, w, (scale, bias), in_act=True, emit_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _grads(fn, inputs, gen):
+    """fn's outputs and the gradients of a fixed random projection of them."""
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point()) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * torch.randn(o.shape, generator=gen, device=o.device)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, [t for t in leaves if t.requires_grad])
+
+
+def _kernel_and_plain(dev):
+    """(name, wrapper, plain, inputs) of every kernel with a backward."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    qkv = _randn(gen, 3, 216, 3 * 64, dtype=BF, dev=dev)
+    att = (qkv[..., :64] * 32 ** -0.5, qkv[..., 64:128], qkv[..., 128:], _randn(gen, 2, 216, 216, dev=dev))
+    x128 = _randn(gen, 2, 3, 5, 128, dtype=BF, dev=dev)
+    p1, p2 = _ffn_params(gen, 128, 512, dev), _ffn_params(gen, 128, 512, dev)
+    pw = [1 + _randn(gen, 128, std=0.1, dev=dev), _randn(gen, 128, std=0.1, dev=dev),
+          1 + _randn(gen, 128, std=0.1, dev=dev), _randn(gen, 128, std=0.1, dev=dev),
+          _randn(gen, 384, 128, std=128 ** -0.5, dev=dev), _randn(gen, 384, 128, std=128 ** -0.5, dev=dev),
+          _randn(gen, 128, 128, std=128 ** -0.5, dev=dev)]
+    xs = _randn(gen, 1, 2, 3, 4, 256, dtype=BF, dev=dev)
+    ws, bs = _randn(gen, 128, 32, std=32 ** -0.5, dev=dev), _randn(gen, 128, std=0.1, dev=dev)
+    wt = _randn(gen, 256, 128, 2, 2, 2, std=0.05, dev=dev)
+    xn = (1 + 2 * torch.randn(2, 4, 6, 8, 64, generator=gen, device=dev)).to(BF)
+    xw = _randn(gen, 1, 4, 6, 8, 32, dtype=BF, dev=dev)
+    ww = _randn(gen, 32, 32, 3, 3, 3, std=0.05, dev=dev)
+    sc, bi = 1 + _randn(gen, 1, 32, std=0.1, dev=dev), _randn(gen, 1, 32, std=0.1, dev=dev)
+    return [
+        ("window_attention", lambda *a: attention.window_attention(*a, BF),
+         lambda *a: attention.reference_window_attention(*a, BF), att),
+        ("ffn", lambda x, *p: ffn.ffn(x, *p, BF, residual=True),
+         lambda x, *p: x + ffn.reference_ffn(x, *p, BF), (x128, *p1)),
+        ("ffn_pair", lambda x, *p: ffn.ffn_pair(x, p[:6], p[6:], BF),
+         lambda x, *p: ffn.reference_ffn_pair(x, p[:6], p[6:], BF), (x128, *p1, *p2)),
+        ("pixel_shuffle_linear", lambda *a: shuffle.pixel_shuffle_linear(*a, (2, 2, 2), BF),
+         lambda *a: shuffle.reference_shuffle(*a, (2, 2, 2), BF), (xs, ws, bs)),
+        ("transp_conv_kxs", lambda *a: shuffle.transp_conv_kxs(*a, BF),
+         lambda *a: shuffle.reference_transp_conv(*a, BF), (xs, wt)),
+        ("pixelweight", lambda a, b, *p: pixelweight.pixelweight(a, b, p, BF),
+         lambda a, b, *p: pixelweight.reference_pixelweight(a, b, p, BF), (x128, x128 * 0.5, *pw)),
+        ("instance_norm_leaky", norm.instance_norm_leaky,
+         lambda x: torch.nn.functional.leaky_relu(norm.reference_instance_norm(x), 0.01), (xn,)),
+        ("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3, (xw, ww)),
+        ("conv3x3_winograd_fused",
+         lambda x, w, s, b: winograd.conv3x3_winograd_fused(x, w, (s, b), in_act=True,
+                                                            emit_stats=True),
+         lambda x, w, s, b: winograd.direct_conv3x3_fused(x, w, s, b, True, True),
+         (xw, ww, sc, bi)),
+    ]
+
+
+def test_kernel_backward_is_the_plain_backward(dev):
+    """Each wrapper's backward recomputes through the plain path: gradients
+    equal the plain path's own (deterministic cuDNN for K9's direct conv)."""
+    torch.backends.cudnn.deterministic, saved = True, torch.backends.cudnn.deterministic
+    try:
+        for name, kernel_fn, plain_fn, inputs in _kernel_and_plain(dev):
+            got = _grads(kernel_fn, inputs, torch.Generator(device=dev).manual_seed(11))
+            want = _grads(plain_fn, inputs, torch.Generator(device=dev).manual_seed(11))
+            for g, w in zip(got, want):
+                rel = ((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
+                assert rel <= 1e-6, (name, rel)
+    finally:
+        torch.backends.cudnn.deterministic = saved

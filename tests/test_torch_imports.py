@@ -1,7 +1,8 @@
 """The port loads no JAX: a fresh interpreter imports every module of
-``hybrid_ctunet_tpu_torch`` and runs the TINY ensemble (CTUNet depth 50 and
-TUNet sliding-window inference, softmax-mean, argmax, through cli/bench.py's
-functions), then checks sys.modules."""
+``hybrid_ctunet_tpu_torch`` (the training, data and CLI modules with them),
+runs the TINY ensemble (CTUNet depth 50 and TUNet sliding-window inference,
+softmax-mean, argmax, through cli/bench.py's functions) and one TINY TUNet
+train step with its scalar log, then checks sys.modules."""
 import subprocess
 import sys
 import textwrap
@@ -29,6 +30,18 @@ SCRIPT = textwrap.dedent("""
     for t in (res, logits, prob):
         assert tuple(t.shape) == (1, 40, 36, 33, 3) and torch.isfinite(t).all(), t.shape
     assert tuple(mask.shape) == (1, 40, 36, 33) and 0 <= mask.min() and mask.max() < 3
+
+    import tempfile
+    from hybrid_ctunet_tpu_torch.train import state, steps
+    from hybrid_ctunet_tpu_torch.utils.logging import ScalarWriter
+    model = bench.build_tunet(0, "cpu", **tiny)
+    step = steps.make_train_step("tunet", model, state.make_optimizer(model.parameters()))
+    m = step(torch.randn(1, 32, 32, 32, 1), torch.randint(0, 3, (1, 32, 32, 32, 1)), 1e-4)
+    assert torch.isfinite(m["loss"])
+    with tempfile.TemporaryDirectory() as d:
+        w = ScalarWriter(d)
+        w.add_scalar("train_loss", m["loss"], 0)
+        w.close()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     print(len(names), "modules;", "loaded:", loaded)
     assert not loaded, loaded
