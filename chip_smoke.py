@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version and, where one PyTorch call computes the same function,
    that call (median of 5 runs of 10 back-to-back calls); and each
    kernel's bound, the least time an H100 could take for the same bytes and
-   operations.
+   operations. K2 is also logged per pyramid stage against SDPA, K9 per
+   call against cuDNN, with its fused entry beside it.
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
@@ -225,27 +226,39 @@ def phase_kernels(device):
     del acc, acc0, got, want, pred
 
     # K2: window attention at pyramid stages 0-2 (block and grid calls share
-    # shapes: 2 calls per stage per chunk); library: SDPA with the bias as an
-    # additive bf16 mask, q pre-scaled
+    # shapes: 2 calls per stage per chunk), the bias from a random
+    # ((2w-1)^3, heads) table as the layer holds it; library: SDPA with the
+    # gathered bias as an additive bf16 mask (gathered outside the timing),
+    # q pre-scaled. Bound: q, k, v, the table and the output once; the
+    # products on the tensor cores and, per score, the bias add, max, exp,
+    # sum and division in fp32.
     t = Tally(library=True)
+    stages = []
     for stage, (nwin, C) in enumerate(((8, 768), (64, 512), (512, 256))):
-        heads, T = C // 32, 216
+        heads, w = C // 32, 6
+        T = w ** 3
         qkv = randn(nwin, T, 3 * C, dtype=bf)
         q = qkv[..., :C] * 32 ** -0.5
         k, v = qkv[..., C : 2 * C], qkv[..., 2 * C :]
-        bias = randn(heads, T, T)
-        got = attention.window_attention(q, k, v, bias, bf)
-        want = attention.reference_window_attention(q, k, v, bias, bf)
+        table = randn((2 * w - 1) ** 3, heads)
+        got = attention.window_attention(q, k, v, table, w, bf)
+        want = attention.reference_window_attention_table(q, k, v, table, w, bf)
         err = check_bf16(f"window_attention stage {stage} ({nwin}x{T}x{C})", got, want)
-        ms = cuda_time_ms(lambda: attention.window_attention(q, k, v, bias, bf))
-        plain = cuda_time_ms(lambda: attention.reference_window_attention(q, k, v, bias, bf))
+        ms = cuda_time_ms(lambda: attention.window_attention(q, k, v, table, w, bf))
+        plain = cuda_time_ms(
+            lambda: attention.reference_window_attention_table(q, k, v, table, w, bf))
         qh, kh, vh = (a.reshape(nwin, T, heads, 32).transpose(1, 2) for a in (q, k, v))
-        mask = bias.to(bf)[None]
+        mask = attention.gather_bias(table, w).to(bf).contiguous()[None]
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                                   scale=1.0))
-        log(f"  window_attention stage {stage}: {ms!r} ms, plain {plain!r} ms, sdpa {lib!r} ms")
-        t.add(err, 2, ms, plain, nbytes(q, k, v, bias, got), 4 * nwin * T * T * C, lib)
-    results["window_attention"] = t.row()
+        log(f"  window_attention stage {stage}: {ms!r} ms, plain {plain!r} ms, sdpa {lib!r} ms "
+            f"per call")
+        stages.append({"stage": stage, "windows": nwin, "C": C, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib})
+        t.add(err, 2, ms, plain, nbytes(q, k, v, table, got), 4 * nwin * T * T * C, lib,
+              fp32_flops=5 * nwin * heads * T * T)
+    results["window_attention"] = {**t.row(), "stages": stages}
+    del qkv, q, k, v, got, want, mask
 
     def ffn_params(c, h):
         return (1.0 + randn(c, std=0.1), randn(c, std=0.1), randn(h, c, std=c ** -0.5),
@@ -558,7 +571,7 @@ def per_call_checks():
         return x + out if residual else out
 
     plains = (
-        (attention, "window_attention", attention.reference_window_attention),
+        (attention, "window_attention", attention.reference_window_attention_table),
         (ffn, "ffn", plain_ffn),
         (ffn, "ffn_pair", ffn.reference_ffn_pair),
         (shuffle, "pixel_shuffle_linear", shuffle.reference_shuffle),
@@ -811,10 +824,10 @@ def grad_cases(device):
     cases = []
     for nwin, C in ((8, 768), (64, 512), (512, 256)):
         qkv = randn(nwin, 216, 3 * C, dtype=bf)
-        cases.append((f"window_attention C{C}", lambda *a: attention.window_attention(*a, bf),
-                      lambda *a: attention.reference_window_attention(*a, bf),
+        cases.append((f"window_attention C{C}", lambda *a: attention.window_attention(*a, 6, bf),
+                      lambda *a: attention.reference_window_attention_table(*a, 6, bf),
                       (qkv[..., :C] * 32 ** -0.5, qkv[..., C:2 * C], qkv[..., 2 * C:],
-                       randn(C // 32, 216, 216))))
+                       randn(11 ** 3, C // 32))))
     cases.append(("ffn", lambda x, *p: ffn.ffn(x, *p, bf, residual=True),
                   lambda x, *p: x + ffn.reference_ffn(x, *p, bf),
                   (randn(CHUNK, 24, 24, 48, 256, dtype=bf), *ffn_params(256, 1024))))

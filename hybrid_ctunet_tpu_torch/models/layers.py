@@ -13,7 +13,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -162,17 +161,6 @@ class _Table(nn.Module):
         self.weight = _empty(rows, cols, device=device)
 
 
-def _rel_pos_indices(window: int) -> np.ndarray:
-    """3D relative-position index table for a (w,w,w) window, token order
-    (h, w, f) flattened — reference hybrid_CTUNet.py:472-479."""
-    pos = np.arange(window)
-    grid = np.stack(np.meshgrid(pos, pos, pos, indexing="ij"))  # (3, w, w, w)
-    grid = grid.reshape(3, -1).T  # (w^3, 3) in (h w f) order
-    rel = grid[:, None, :] - grid[None, :, :] + window - 1
-    strides = np.array([(2 * window - 1) ** 2, 2 * window - 1, 1])
-    return (rel * strides).sum(-1).astype(np.int64)  # (w^3, w^3)
-
-
 class MultiAxisWindowAttention(nn.Module):
     """MaxViT-style windowed MHSA over w^3 windows with a 3D relative-position
     bias (reference MultiAxisAttention, hybrid_CTUNet.py:442-511).
@@ -192,8 +180,6 @@ class MultiAxisWindowAttention(nn.Module):
         self.to_qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
         self.rel_pos_bias = _Table((2 * window - 1) ** 3, self.heads, device=device)
         self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device))
-        idx = torch.from_numpy(_rel_pos_indices(window))
-        self.register_buffer("rel_pos_index", idx.to(device), persistent=False)
 
     def forward(self, x):
         B, X, Y, Z, C = x.shape
@@ -211,12 +197,12 @@ class MultiAxisWindowAttention(nn.Module):
 
         qkv = self.to_qkv(h)
         q, k, v = qkv.split(C, dim=-1)
-        bias = self.rel_pos_bias.weight[self.rel_pos_index].permute(2, 0, 1)  # (heads, T, T)
         q = q * self.dim_head ** -0.5
+        table = self.rel_pos_bias.weight  # ((2w-1)^3, heads), gathered by the op
         if attention_ops.supports(T, C, self.heads, self.dtype):
-            out = attention_ops.window_attention(q, k, v, bias, self.dtype)
+            out = attention_ops.window_attention(q, k, v, table, w, self.dtype)
         else:
-            out = attention_ops.reference_window_attention(q, k, v, bias, self.dtype)
+            out = attention_ops.reference_window_attention_table(q, k, v, table, w, self.dtype)
         out = self.to_out(out)
 
         out = out.reshape(B, nx, ny, nz, w, w, w, C)

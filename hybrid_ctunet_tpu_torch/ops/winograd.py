@@ -42,7 +42,7 @@ AT = np.array([[1, 1, 1, 0], [0, 1, -1, -1]], np.float32)
 
 CIN = 32  # the one input width the kernel takes (the JAX WINOGRAD_CH default)
 FEATURES = (32, 64, 128)
-_TB = 4  # csrc/winograd.cu TB: 2x2x2-output tiles per block along each axis
+_TB = (2, 4, 4)  # csrc/winograd.cu TBX, TBY, TBZ: 2x2x2-output tiles per work item
 SLOPE = 0.01
 _MATS = {"BT": BT, "AT": AT, "GGG": np.kron(np.kron(G, G), G)}  # GGG: (64, 27)
 
@@ -143,18 +143,21 @@ def supports(x_shape, w_shape, stride, dtype) -> bool:
 
 
 def num_blocks(X: int, Y: int, Z: int) -> int:
-    """Blocks of TB^3 tiles the kernel's grid covers one sample with."""
-    return math.prod(-(-(d // 2) // _TB) for d in (X, Y, Z))
+    """Work items (blocks of 2x4x4 tiles) of one sample and 32 features."""
+    return math.prod(-(-(d // 2) // tb) for d, tb in zip((X, Y, Z), _TB))
 
 
 def _launch(x, w, scale, bias, act: bool, emit_stats: bool):
-    """K9 on CUDA tensors: U in fp32 -> bf16 here, the transforms and products
-    in ``csrc/winograd.cu``; with ``emit_stats`` a fixed-order combine of the
-    per-block sums."""
+    """K9 on CUDA tensors, one entry of ``csrc/winograd.cu``: a first launch
+    forms U in fp32 from w and rounds it to bf16 into a (64, F, C) buffer
+    (``transform_filter``'s sum, in the layout of the kernel's B operand);
+    the second runs the transforms and products; with ``emit_stats`` a third
+    combines the per-item sums in a fixed order."""
     B, X, Y, Z, C = x.shape
     Fo = w.shape[0]
     x = x.contiguous()
-    u = transform_filter(w).reshape(64, C, Fo).to(torch.bfloat16).contiguous()
+    w = w.contiguous() if w.dtype in (torch.float32, torch.bfloat16) else w.float().contiguous()
+    u = torch.empty((64, Fo, C), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, X, Y, Z, Fo), dtype=torch.bfloat16, device=x.device)
     work = None
     if emit_stats:
@@ -165,15 +168,17 @@ def _launch(x, w, scale, bias, act: bool, emit_stats: bool):
         sc, bi = scale.float().contiguous(), bias.float().contiguous()
         if tuple(sc.shape) != (B, C) or tuple(bi.shape) != (B, C):
             raise ValueError(f"affine scale/bias must be ({B}, {C})")
-    if any(t is not None and (not t.is_cuda or t.device != x.device) for t in (u, sc, bi)):
+    if any(t is not None and (not t.is_cuda or t.device != x.device) for t in (w, sc, bi)):
         raise ValueError("weights and affine must be on the input's CUDA device")
     fn = kernels.bind(
-        "winograd", "conv3x3_winograd", *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_void_p,
-        *[ctypes.c_int] * 5, ctypes.c_void_p,
+        "winograd", "conv3x3_winograd", *[ctypes.c_void_p] * 2, ctypes.c_int,
+        *[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 5,
+        ctypes.c_void_p,
     )
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(x.data_ptr(), u.data_ptr(), out.data_ptr(), ptr(sc), ptr(bi), int(act), ptr(work),
-             B, X, Y, Z, Fo, kernels.stream_ptr(x.device))
+    err = fn(x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), u.data_ptr(),
+             out.data_ptr(), ptr(sc), ptr(bi), int(act), ptr(work), B, X, Y, Z, Fo,
+             kernels.stream_ptr(x.device))
     kernels.check(err, "conv3x3_winograd")
     conv3x3_winograd.launches += 1
     if not emit_stats:

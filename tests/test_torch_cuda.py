@@ -44,14 +44,45 @@ def test_scatter_bit_exact(dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("t", [216, 27, 8])
-def test_window_attention(dev, t):
+def _attention_inputs(gen, n, window, c, dev, ld=None):
+    """q (pre-scaled), k, v as strided row views of one qkv tensor whose rows
+    are ``ld`` >= 3c wide, and a ((2w-1)^3, heads) fp32 table."""
+    qkv = _randn(gen, n, window ** 3, ld or 3 * c, dtype=BF, dev=dev)
+    q, k, v = qkv[..., :c] * 32 ** -0.5, qkv[..., c:2 * c], qkv[..., 2 * c:3 * c]
+    return q, k, v, _randn(gen, (2 * window - 1) ** 3, c // 32, dev=dev)
+
+
+@pytest.mark.parametrize("n,window,c", [(9, 6, 256), (3, 6, 768), (7, 3, 64), (12, 2, 64)])
+def test_window_attention(dev, n, window, c):
     gen = torch.Generator(device=dev).manual_seed(1)
-    qkv = _randn(gen, 7, t, 3 * 64, dtype=BF, dev=dev)
-    q, k, v = qkv[..., :64] * 32 ** -0.5, qkv[..., 64:128], qkv[..., 128:]
-    bias = _randn(gen, 2, t, t, dev=dev)
-    _bf16_close(attention.window_attention(q, k, v, bias, BF),
-                attention.reference_window_attention(q, k, v, bias, BF))
+    q, k, v, table = _attention_inputs(gen, n, window, c, dev)
+    _bf16_close(attention.window_attention(q, k, v, table, window, BF),
+                attention.reference_window_attention_table(q, k, v, table, window, BF))
+
+
+def test_window_attention_strided_views(dev):
+    """q, k, v rows strided by a leading dim wider than 3C (as slices of a
+    padded projection), and k / v taken out of order."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, table = _attention_inputs(gen, 5, 6, 64, dev, ld=3 * 64 + 40)
+    assert k.stride(1) == v.stride(1) == 232
+    _bf16_close(attention.window_attention(q, v, k, table, 6, BF),
+                attention.reference_window_attention_table(q, v, k, table, 6, BF))
+
+
+def test_window_attention_table_gradient(dev):
+    """The gradient reaches the table through the plain version's gather."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v, table = _attention_inputs(gen, 4, 6, 64, dev)
+    proj = torch.randn(4, 216, 64, generator=gen, device=dev)
+    grads = []
+    for fn in (attention.window_attention, attention.reference_window_attention_table):
+        leaf = table.detach().clone().requires_grad_()
+        (fn(q, k, v, leaf, 6, BF).float() * proj).sum().backward()
+        grads.append(leaf.grad)
+    assert grads[0].abs().max().item() > 0
+    # the gather's backward accumulates with atomics: equal up to sum order
+    assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 1e-6
 
 
 def _ffn_params(gen, c, h, dev):
@@ -145,7 +176,10 @@ def test_wrappers_raise_on_unsupported(dev):
 
 @pytest.mark.parametrize("shape,f", [((2, 6, 10, 12, 32), 32),    # ragged tile blocks
                                      ((1, 8, 8, 16, 32), 64),
-                                     ((1, 4, 6, 8, 32), 128)])
+                                     ((1, 4, 6, 8, 32), 128),
+                                     ((1, 10, 14, 18, 32), 64),   # 5x7x9 tiles: ragged in x, y, z
+                                     ((1, 10, 14, 18, 32), 128),
+                                     ((3, 2, 2, 2, 32), 32)])     # one tile per sample
 def test_winograd(dev, shape, f):
     gen = torch.Generator(device=dev).manual_seed(8)
     x = _randn(gen, *shape, dtype=BF, dev=dev)
@@ -171,11 +205,13 @@ def test_conv3d_same_routes_bf16_sites_to_k9(dev):
     assert winograd.conv3x3_winograd.launches == before + 1
 
 
-def test_winograd_fused_stats_reproducible(dev):
+@pytest.mark.parametrize("shape,f", [((2, 6, 10, 12, 32), 32), ((1, 10, 14, 18, 32), 64)])
+def test_winograd_fused_stats_reproducible(dev, shape, f):
     gen = torch.Generator(device=dev).manual_seed(9)
-    x = _randn(gen, 2, 6, 10, 12, 32, dtype=BF, dev=dev)
-    w = _randn(gen, 32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5, dev=dev)
-    scale, bias = 1 + _randn(gen, 2, 32, std=0.1, dev=dev), _randn(gen, 2, 32, std=0.1, dev=dev)
+    x = _randn(gen, *shape, dtype=BF, dev=dev)
+    w = _randn(gen, f, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5, dev=dev)
+    scale = 1 + _randn(gen, shape[0], 32, std=0.1, dev=dev)
+    bias = _randn(gen, shape[0], 32, std=0.1, dev=dev)
     got = winograd.conv3x3_winograd_fused(x, w, (scale, bias), in_act=True, emit_stats=True)
     want = winograd.reference_conv3x3_winograd_fused(x, w, scale, bias, True, True)
     _bf16_close(got[0], want[0])
@@ -198,8 +234,7 @@ def _grads(fn, inputs, gen):
 def _kernel_and_plain(dev):
     """(name, wrapper, plain, inputs) of every kernel with a backward."""
     gen = torch.Generator(device=dev).manual_seed(10)
-    qkv = _randn(gen, 3, 216, 3 * 64, dtype=BF, dev=dev)
-    att = (qkv[..., :64] * 32 ** -0.5, qkv[..., 64:128], qkv[..., 128:], _randn(gen, 2, 216, 216, dev=dev))
+    att = _attention_inputs(gen, 3, 6, 64, dev)
     x128 = _randn(gen, 2, 3, 5, 128, dtype=BF, dev=dev)
     p1, p2 = _ffn_params(gen, 128, 512, dev), _ffn_params(gen, 128, 512, dev)
     pw = [1 + _randn(gen, 128, std=0.1, dev=dev), _randn(gen, 128, std=0.1, dev=dev),
@@ -214,8 +249,8 @@ def _kernel_and_plain(dev):
     ww = _randn(gen, 32, 32, 3, 3, 3, std=0.05, dev=dev)
     sc, bi = 1 + _randn(gen, 1, 32, std=0.1, dev=dev), _randn(gen, 1, 32, std=0.1, dev=dev)
     return [
-        ("window_attention", lambda *a: attention.window_attention(*a, BF),
-         lambda *a: attention.reference_window_attention(*a, BF), att),
+        ("window_attention", lambda *a: attention.window_attention(*a, 6, BF),
+         lambda *a: attention.reference_window_attention_table(*a, 6, BF), att),
         ("ffn", lambda x, *p: ffn.ffn(x, *p, BF, residual=True),
          lambda x, *p: x + ffn.reference_ffn(x, *p, BF), (x128, *p1)),
         ("ffn_pair", lambda x, *p: ffn.ffn_pair(x, p[:6], p[6:], BF),

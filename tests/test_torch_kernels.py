@@ -44,19 +44,46 @@ def _close(got, want, dt):
         np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max(), rtol=tol)
 
 
+def _jax_bias(table, window):
+    """The JAX layer's gather: table[_rel_pos_indices(w)] -> (heads, T, T)."""
+    return jnp.transpose(jnp.asarray(table)[j_layers._rel_pos_indices(window)], (2, 0, 1))
+
+
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
-@pytest.mark.parametrize("n,t,heads", [(5, 27, 2), (3, 216, 1)])
-def test_window_attention_core(rng, dt, n, t, heads):
+@pytest.mark.parametrize("n,window,heads", [(5, 3, 2), (3, 6, 1)])
+def test_window_attention_core(rng, dt, n, window, heads):
+    """K2's public entry (q, k, v, table, w) against the JAX layer's path: its
+    gather of the table, then the attention oracle."""
     jdt, tdt = DTYPES[dt]
-    c = heads * 32
+    c, t = heads * 32, window ** 3
     q, k, v = (rng.standard_normal((n, t, c)).astype(np.float32) for _ in range(3))
     q *= 32 ** -0.5
-    bias = rng.standard_normal((heads, t, t)).astype(np.float32)
+    table = rng.standard_normal(((2 * window - 1) ** 3, heads)).astype(np.float32)
     want = attention_pallas.reference_window_attention(
-        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias), jdt)
-    got = attention.window_attention(*(_t(a, tdt) for a in (q, k, v)), _t(bias), tdt)
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), _jax_bias(table, window), jdt)
+    got = attention.window_attention(*(_t(a, tdt) for a in (q, k, v)), _t(table), window, tdt)
     assert got.dtype == tdt
     _close(got, want, dt)
+
+
+@pytest.mark.parametrize("window", [2, 3, 4, 5, 6])
+def test_rel_pos_index_is_the_reference_gather(window):
+    """The kernel's arithmetic index (row term + column term) equals the
+    reference's relative-position index table."""
+    np.testing.assert_array_equal(attention.rel_pos_index(window).numpy(),
+                                  j_layers._rel_pos_indices(window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_table_is_gather_then_core(rng, dtype):
+    """The table-form plain K2 equals the reference gather followed by the
+    plain core, bit for bit."""
+    window, heads, n = 3, 2, 4
+    q, k, v = (_t(rng.standard_normal((n, 27, 64)), dtype) for _ in range(3))
+    table = _t(rng.standard_normal((125, heads)))
+    bias = table[torch.from_numpy(j_layers._rel_pos_indices(window).astype(np.int64))]
+    want = attention.reference_window_attention(q, k, v, bias.permute(2, 0, 1), dtype)
+    assert torch.equal(attention.window_attention(q, k, v, table, window, dtype), want)
 
 
 def _window_attn_sd(p):
