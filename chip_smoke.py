@@ -151,6 +151,28 @@ class Tally:
                 "library_ms": self.library_ms}
 
 
+def erff_fp32_flops() -> int:
+    """fp32 FLOP of one ``erff`` as this card's compiler builds it: a kernel
+    that applies it once, compiled for sm_90a and read back with
+    ``cuobjdump -sass``; FFMA counts 2, FADD, FMUL and MUFU 1 each (selects,
+    compares and moves none)."""
+    import re
+    import subprocess
+
+    from hybrid_ctunet_tpu_torch import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, cubin = kernels.BUILD_DIR / "erff_probe.cu", kernels.BUILD_DIR / "erff_probe.cubin"
+    src.write_text("__global__ void k(float* p) { p[threadIdx.x] = erff(p[threadIdx.x]); }\n")
+    nvcc = kernels._nvcc()
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-cubin", "-o",
+                    str(cubin), str(src)], check=True, capture_output=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", str(cubin)],
+                          check=True, capture_output=True, text=True).stdout
+    ops = re.findall(r"\b(FFMA|FADD|FMUL|MUFU)\b", sass)
+    return sum(2 if op == "FFMA" else 1 for op in ops)
+
+
 def record_norm_sites(model, x, **kw):
     """(shape, act) -> calls of the conv-path InstanceNorm in one forward of
     ``model`` on ``x`` (meta tensors: shapes only, nothing computed)."""
@@ -264,6 +286,18 @@ def phase_kernels(device):
         return (1.0 + randn(c, std=0.1), randn(c, std=0.1), randn(h, c, std=c ** -0.5),
                 randn(h, std=0.1), randn(c, h, std=h ** -0.5), randn(c, std=0.1))
 
+    erf_flops = erff_fp32_flops()
+    log(f"  erff: {erf_flops} fp32 FLOP an element (SASS of a one-erff kernel)")
+
+    def ffn_fp32_flops(rows, c, h):
+        """fp32 FLOP of one residual FFN outside the tensor cores: per input
+        element the LN's 7 (sum, minus the mean, the squares' FMA, times
+        rstd, the affine's FMA); per hidden element the bias add, the GELU
+        formula's 4 (x/sqrt 2, 1 + erf, x/2, the product) and erff's; per
+        output element the bias and residual adds. The function's work
+        whatever implements it (K4 reads its GELU from a table)."""
+        return rows * (7 * c + h * (5 + erf_flops) + 2 * c)
+
     # K3: stage-2 FFN, residual, 2 calls per chunk
     x = randn(CHUNK, 24, 24, 48, 256, dtype=bf)
     p = ffn_params(256, 1024)
@@ -275,8 +309,8 @@ def phase_kernels(device):
     log(f"  ffn: {ms!r} ms, plain {plain!r} ms")
     t = Tally(library=False)
     rows = x.numel() // 256
-    t.add(err, 2, ms, plain, 2 * nbytes(x) + (2 * 256 * 1024 + 1024 + 256) * 2,
-          4 * rows * 256 * 1024)
+    t.add(err, 2, ms, plain, 2 * nbytes(x) + nbytes(*p), 4 * rows * 256 * 1024,
+          fp32_flops=ffn_fp32_flops(rows, 256, 1024))
     results["ffn"] = t.row()
 
     # K4: stage-3 FFN pair, 1 call per chunk
@@ -286,14 +320,16 @@ def phase_kernels(device):
     want = ffn.reference_ffn_pair(x, p1, p2, bf)
     err = check_bf16("ffn_pair stage 3 (884736x128, hidden 512)", got, want)
     ms = cuda_time_ms(lambda: ffn.ffn_pair(x, p1, p2, bf))
+    fn, args, _, keep = ffn.pair_call(x, p1, p2, bf)
+    alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
     plain = cuda_time_ms(lambda: ffn.reference_ffn_pair(x, p1, p2, bf))
-    log(f"  ffn_pair: {ms!r} ms, plain {plain!r} ms")
+    log(f"  ffn_pair: {ms!r} ms, kernel alone {alone!r} ms, plain {plain!r} ms")
     t = Tally(library=False)
     rows = x.numel() // 128
-    t.add(err, 1, ms, plain, 2 * nbytes(x) + 2 * (2 * 128 * 512 + 512 + 128) * 2,
-          2 * 4 * rows * 128 * 512)
-    results["ffn_pair"] = t.row()
-    del x, got, want
+    t.add(err, 1, ms, plain, 2 * nbytes(x) + nbytes(*p1, *p2), 2 * 4 * rows * 128 * 512,
+          fp32_flops=2 * ffn_fp32_flops(rows, 128, 512))
+    results["ffn_pair"] = {**t.row(), "kernel_alone_ms": alone}
+    del x, got, want, keep
 
     # K5: the four pyramid shuffles, 1 call each per chunk (TUNet; CTUNet's
     # res-only path runs the first three)
@@ -315,9 +351,11 @@ def phase_kernels(device):
     results["pixel_shuffle_linear"] = t.row()
     del x, got, want
 
-    # K6: the four decoder upsamples of CTUNet/CUNet, 1 call each per chunk;
-    # library: F.conv_transpose3d (cuDNN) on the channels-last views
+    # K6: the four decoder upsamples of CTUNet/CUNet, 1 call each per chunk,
+    # w fp32 as the layer holds it; library: F.conv_transpose3d (cuDNN) on
+    # the channels-last views with a bf16 weight made outside the timing
     t = Tally(library=True)
+    sites, alone_sum = [], 0.0
     for shape, k, cout in (((CHUNK, 6, 6, 12, 1024), (2, 2, 2), 512),
                            ((CHUNK, 12, 12, 24, 512), (2, 2, 2), 256),
                            ((CHUNK, 24, 24, 48, 256), (2, 2, 2), 128),
@@ -329,12 +367,21 @@ def phase_kernels(device):
         want = shuffle.reference_transp_conv(x, w, bf)
         err = check_bf16(f"transp_conv_kxs {shape} {k} -> {cout}", got, want)
         ms = cuda_time_ms(lambda: shuffle.transp_conv_kxs(x, w, bf))
+        fn, args, _, keep = shuffle.transp_call(x, w, bf)
+        alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
         plain = cuda_time_ms(lambda: shuffle.reference_transp_conv(x, w, bf))
         xc, wb = x.permute(0, 4, 1, 2, 3), w.to(bf)
         lib = cuda_time_ms(lambda: F.conv_transpose3d(xc, wb, stride=k))
-        log(f"  transp_conv_kxs {shape}: {ms!r} ms, plain {plain!r} ms, conv_transpose3d {lib!r} ms")
-        t.add(err, 1, ms, plain, nbytes(x, got) + wb.numel() * 2, 2 * got.numel() * cin, lib)
-    results["transp_conv_kxs"] = t.row()
+        log(f"  transp_conv_kxs {shape}: {ms!r} ms, kernel alone {alone!r} ms, plain {plain!r} ms, "
+            f"conv_transpose3d {lib!r} ms")
+        site = Tally(library=True)
+        for tally in (t, site):
+            tally.add(err, 1, ms, plain, nbytes(x, w, got), 2 * got.numel() * cin, lib)
+        sites.append({"x": list(shape), "k": list(k), "cout": cout, **site.row(),
+                      "kernel_alone_ms": alone})
+        alone_sum += alone
+        del keep
+    results["transp_conv_kxs"] = {**t.row(), "kernel_alone_ms": alone_sum, "sites": sites}
     del x, got, want
 
     # K7: the two fusions of each Up2FusionBlock, 2 calls per width per chunk
@@ -541,7 +588,8 @@ def gates_off():
     @contextlib.contextmanager
     def ctx():
         saved = [(m, n, getattr(m, n)) for m, n in (
-            (attention, "supports"), (ffn, "supports"), (shuffle, "supports"),
+            (attention, "supports"), (ffn, "supports"), (ffn, "pair_supports"),
+            (shuffle, "supports"),
             (shuffle, "transp_supports"), (pixelweight, "supports"), (norm, "supports"),
             (winograd, "supports"))]
         for m, n, _ in saved:

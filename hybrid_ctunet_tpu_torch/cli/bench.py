@@ -13,8 +13,8 @@ params, one 256 x 256 x 128 volume, ROI 96^3, gaussian blending,
 
 Prints one JSON line: {"metric": "hybrid_volumes/min", "value": ..., ...}
 with the seconds per volume of each half and the peak memory. ``--profile``
-first traces one warm CTUNet half with ``torch.profiler`` and prints its
-device time by kernel to stderr. The TUNet-only slice is the same
+first traces one warm volume of each half with ``torch.profiler`` and
+prints their device time by kernel to stderr. The TUNet-only slice is the same
 functions (``build_tunet``, ``make_engine``, ``segment``, ``time_volumes``).
 It needs a CUDA device and fails without one.
 """
@@ -237,7 +237,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one warm CTUNet half first; kernel table to stderr")
+                    help="trace one warm volume of each half first; kernel tables to stderr")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: this benchmark needs a CUDA device", file=sys.stderr)
@@ -248,7 +248,8 @@ def main(argv=None) -> int:
     tu_engine = make_engine(build_tunet(args.seed, device))
     volume = make_volume(args.seed, device=device)
     if args.profile:
-        print(json.dumps({"profile_ctunet_half": profile_half(ct_engine, volume)}),
+        print(json.dumps({"profile_ctunet_half": profile_half(ct_engine, volume),
+                          "profile_tunet_half": profile_half(tu_engine, volume)}),
               file=sys.stderr)
     stats = time_hybrid(ct_engine, tu_engine, volume, args.reps)
     print(json.dumps({

@@ -3,7 +3,8 @@ launch counts.
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
-``ctypes``. Libraries are keyed by a hash of their source and flags and kept
+``ctypes``. Libraries are keyed by a hash of their source, the shared
+headers (``csrc/*.cuh``) and the flags, and kept
 under ``build/torch_kernels/`` at the repository root, so a second run does
 not rebuild. Nothing is compiled at import time: the CPU tests import every
 module, and this machine may have no ``nvcc``.
@@ -107,6 +108,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

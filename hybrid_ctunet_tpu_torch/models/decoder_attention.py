@@ -62,7 +62,7 @@ class UpAttentionBlock(nn.Module):
             else:
                 ff1, ff2 = seq[1].fn, seq[2].fn
                 p1, p2 = ff1.params(), ff2.params()
-                if ffn_ops.supports(x.shape[-1], p1[2].shape[0], self.dtype):
+                if ffn_ops.pair_supports(x.shape[-1], p1[2].shape[0], self.dtype):
                     x = ffn_ops.ffn_pair(x, p1, p2, self.dtype)
                 else:
                     x = ff2(ff1(x))

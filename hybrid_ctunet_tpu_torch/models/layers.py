@@ -274,8 +274,9 @@ class ConvTranspose3d(nn.Module):
         self.conv = _Weight(cin, cout, *_triple(kernel_size), device=device)
 
     def forward(self, x):
-        return conv_transpose3d_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                                     self.stride)
+        # the weight goes in as held: K6 and the plain version cast it to the
+        # compute dtype themselves
+        return conv_transpose3d_same(x.to(self.dtype), self.conv.weight, self.stride)
 
 
 class PixelweightFusion(nn.Module):

@@ -86,11 +86,11 @@ def conv_transpose3d_same(
     MONAI's (padding, output_padding) rule; output spatial = input * stride.
 
     x: (B, X, Y, Z, Cin); w: (Cin, Cout, kx, ky, kz), torch's ConvTranspose3d
-    layout (the JAX function takes (kx, ky, kz, Cin, Cout)). Output in x's
-    dtype. kernel == stride (every decoder upsample of the reference) is one
-    GEMM Cin -> k^3 Cout with an interleaving store: ops.shuffle's K6 where
-    its gate takes the shape, its plain version elsewhere. Other kernels go
-    to ``F.conv_transpose3d``.
+    layout (the JAX function takes (kx, ky, kz, Cin, Cout)), in any float
+    dtype: it is cast to x's. Output in x's dtype. kernel == stride (every
+    decoder upsample of the reference) is one GEMM Cin -> k^3 Cout with an
+    interleaving store: ops.shuffle's K6 where its gate takes the shape, its
+    plain version elsewhere. Other kernels go to ``F.conv_transpose3d``.
     """
     s = _triple(stride)
     k = tuple(int(v) for v in w.shape[2:])
@@ -100,5 +100,6 @@ def conv_transpose3d_same(
         return shuffle.reference_transp_conv(x, w, x.dtype)
     p = same_padding(k, s)
     op = transpose_output_padding(k, s, p)
-    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, stride=s, padding=p, output_padding=op)
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype), stride=s, padding=p,
+                           output_padding=op)
     return y.permute(0, 2, 3, 4, 1)

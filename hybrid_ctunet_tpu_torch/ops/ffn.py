@@ -44,9 +44,9 @@ def reference_ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
 
 
 def supports(c: int, hidden: int, dtype) -> bool:
-    """Where the kernel engages, as in the JAX package: bf16 pyramid FFNs with
-    hidden <= 1024 (C 256 at stage 2, 128 at stage 3). The ViT FFN and stages
-    0-1 stay plain."""
+    """Where the single-FFN kernel (K3) engages, as in the JAX package: bf16
+    pyramid FFNs with hidden <= 1024 (C 256 at stage 2; stage 3's pair is
+    K4, ``pair_supports``). The ViT FFN and stages 0-1 stay plain."""
     return dtype == torch.bfloat16 and c in (128, 256) and hidden <= 1024 and hidden % _HC == 0
 
 
@@ -105,6 +105,12 @@ def _launch_ffn(x, params, dtype, residual):
 ffn.launches = 0
 
 
+def pair_supports(c: int, hidden: int, dtype) -> bool:
+    """Where the pair kernel engages: the bf16 stage-3 pair of the decoder
+    pyramid (C 128) with a hidden width of 64-chunks up to 1024."""
+    return dtype == torch.bfloat16 and c == 128 and hidden % _HC == 0 and 0 < hidden <= 1024
+
+
 def ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
     """``z = y + FFN2(y)`` with ``y = x + FFN1(x)``; ``params*`` are
     ``(ln_w, ln_b, w1, b1, w2, b2)``. CPU tensors take the plain version; CUDA
@@ -118,21 +124,50 @@ def ffn_pair(x, params1: Sequence, params2: Sequence, dtype):
         x, *params1, *params2)
 
 
-def _launch_pair(x, params1, params2, dtype):
-    x2d, c, hidden, (p1, p2) = _prepare(x, [tuple(params1), tuple(params2)], dtype)
-    if p2[2].shape[0] != hidden:
-        raise ValueError("both FFNs of the pair must have the same hidden width")
+def pair_call(x, params1: Sequence, params2: Sequence, dtype):
+    """The pair's C entry bound to its arguments: ``(fn, args, out, keep)``,
+    where ``fn(*args)`` packs the weights (first launch) and runs the kernel into
+    ``out`` (x's shape). The weights go in as the caller holds them (fp32 or
+    bf16, torch layout): the packing is the entry's own launch. ``keep`` holds
+    the tensors behind the pointers."""
+    if x.dtype != dtype:
+        raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
+    c, hidden = x.shape[-1], params1[2].shape[0]
+    if not pair_supports(c, hidden, dtype):
+        raise ValueError(f"ffn_pair kernel: unsupported C={c} hidden={hidden} {dtype}")
+    weights = [t for p in (params1, params2) for t in p[2:]]
+    wdtype = weights[0].dtype
+    if wdtype not in (torch.float32, torch.bfloat16) or any(t.dtype != wdtype for t in weights):
+        wdtype = torch.float32
+    prepared = []
+    for p in (params1, params2):
+        ln_w, ln_b, w1, b1, w2, b2 = p
+        if tuple(w1.shape) != (hidden, c) or tuple(w2.shape) != (c, hidden):
+            raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} do not match "
+                             f"C={c} hidden={hidden}")
+        prepared += [ln_w.float().contiguous(), ln_b.float().contiguous(),
+                     *[t.to(wdtype).contiguous() for t in (w1, b1, w2, b2)]]
+    if any(not t.is_cuda or t.device != x.device for t in prepared):
+        raise ValueError("ffn parameters must be on the input's CUDA device")
+    x2d = x.reshape(-1, c).contiguous()
     out = torch.empty_like(x2d)
+    nbytes = kernels.bind("ffn", "ffn_pair_packed_bytes", ctypes.c_int)(hidden)
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     fn = kernels.bind(
         "ffn", "ffn_pair", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, *[ctypes.c_void_p] * 13,
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 14,
     )
-    err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden,
-             *[t.data_ptr() for t in p1], *[t.data_ptr() for t in p2],
-             kernels.stream_ptr(x.device))
-    kernels.check(err, "ffn_pair")
+    args = (x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden,
+            int(wdtype == torch.bfloat16), *[t.data_ptr() for t in prepared],
+            packed.data_ptr(), kernels.stream_ptr(x.device))
+    return fn, args, out.view(x.shape), (x2d, prepared, packed)
+
+
+def _launch_pair(x, params1, params2, dtype):
+    fn, args, out, _ = pair_call(x, params1, params2, dtype)
+    kernels.check(fn(*args), "ffn_pair")
     ffn_pair.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 ffn_pair.launches = 0

@@ -25,8 +25,8 @@ from .recompute import recompute
 
 _BM = 64  # csrc/pixel_shuffle.cu: GEMM rows per block
 _BN = 64  # output features per block
-_T_BN = 64  # csrc/transp_conv.cu: output features per block (within one Cout slice)
-_T_BK = 32  # input channels per K step
+_T_BN = 128  # csrc/transp_conv.cu: GEMM columns (k0 k1 k2 Cout) per tile
+_T_BK = 64  # input channels per stage
 
 
 def reference_shuffle(x, w, b, factor: Tuple[int, int, int], dtype):
@@ -107,15 +107,17 @@ def reference_transp_conv(x, w, dtype):
 
 
 def transp_supports(x_shape, w_shape, dtype) -> bool:
-    """Where K6 engages: bf16, Cin a multiple of the K step, Cout of the
-    feature tile — every decoder upsample of CUNet and CTUNet (unlike the
-    TPU gate, the small 6x6x12 and 12x12x24 sites too)."""
+    """Where K6 engages: bf16, Cin a multiple of the K stage, (k0 k1 k2) Cout
+    of the column tile and Cout of 16 bytes — every decoder upsample of
+    CUNet and CTUNet (unlike the TPU gate, the small 6x6x12 and 12x12x24
+    sites too)."""
     return (
         dtype == torch.bfloat16
         and len(x_shape) == 5 and len(w_shape) == 5
         and w_shape[0] == x_shape[-1]
         and x_shape[-1] % _T_BK == 0
-        and w_shape[1] % _T_BN == 0
+        and w_shape[1] % 8 == 0
+        and (w_shape[1] * w_shape[2] * w_shape[3] * w_shape[4]) % _T_BN == 0
     )
 
 
@@ -134,22 +136,33 @@ def transp_conv_kxs(x, w, dtype):
                      lambda x, w: reference_transp_conv(x, w, dtype), x, w)
 
 
-def _launch_transp(x, w, dtype):
+def transp_call(x, w, dtype):
+    """K6's C entry bound to its arguments: ``(fn, args, out, keep)``, where
+    ``fn(*args)`` packs w (fp32 or bf16, torch's layout, as the caller holds
+    it) into a bf16 scratch by a first launch and runs the GEMM into ``out``;
+    ``keep`` holds the tensors behind the pointers."""
     B, X, Y, Z, cin = x.shape
     _, cout, k0, k1, k2 = (int(v) for v in w.shape)
     x = x.contiguous()
-    # B operand rows: n = ((i*k1 + j)*k2 + l)*Cout + co, each row Cin long
-    wk = w.to(dtype).permute(2, 3, 4, 1, 0).contiguous()
-    if not wk.is_cuda or wk.device != x.device:
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        w = w.float()
+    w = w.contiguous()
+    if not w.is_cuda or w.device != x.device:
         raise ValueError("weight must be on the input's CUDA device")
+    wp = torch.empty((k0 * k1 * k2 * cout, cin), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, X * k0, Y * k1, Z * k2, cout), dtype=dtype, device=x.device)
     fn = kernels.bind(
-        "transp_conv", "transp_conv_kxs", *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9,
-        ctypes.c_void_p,
+        "transp_conv", "transp_conv_kxs", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 9, ctypes.c_void_p,
     )
-    err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), B, X, Y, Z, k0, k1, k2, cin, cout,
-             kernels.stream_ptr(x.device))
-    kernels.check(err, "transp_conv_kxs")
+    args = (x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), wp.data_ptr(),
+            out.data_ptr(), B, X, Y, Z, k0, k1, k2, cin, cout, kernels.stream_ptr(x.device))
+    return fn, args, out, (x, w, wp)
+
+
+def _launch_transp(x, w, dtype):
+    fn, args, out, _ = transp_call(x, w, dtype)
+    kernels.check(fn(*args), "transp_conv_kxs")
     transp_conv_kxs.launches += 1
     return out
 

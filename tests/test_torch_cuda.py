@@ -107,6 +107,48 @@ def test_ffn_pair(dev):
     _bf16_close(ffn.ffn_pair(x, p1, p2, BF), ffn.reference_ffn_pair(x, p1, p2, BF))
 
 
+def _pair_params(gen, hidden, wdtype, dev, w1_scale=1.0):
+    ln_w, ln_b, w1, b1, w2, b2 = _ffn_params(gen, 128, hidden, dev)
+    return (ln_w, ln_b, *(t.to(wdtype) for t in (w1 * w1_scale, b1, w2, b2)))
+
+
+@pytest.mark.parametrize("rows,hidden,wdtype", [
+    (37, 512, torch.float32),                   # fewer rows than one 128-row tile
+    (3 * 128 + 45, 512, torch.bfloat16),        # a ragged last tile, bf16 weights
+    (2 * 132 * 128 + 37, 512, torch.float32),   # more tiles than a 132-SM grid holds
+    (300, 1024, torch.float32),                 # the widest hidden the gate takes
+    (200, 64, torch.float32)])                  # one hidden chunk
+def test_ffn_pair_tilings(dev, rows, hidden, wdtype):
+    """K4's persistent grid at its edges, against the plain version and
+    against itself on a rerun, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = _randn(gen, rows, 128, dtype=BF, dev=dev)
+    p1, p2 = _pair_params(gen, hidden, wdtype, dev), _pair_params(gen, hidden, wdtype, dev)
+    got = ffn.ffn_pair(x, p1, p2, BF)
+    _bf16_close(got, ffn.reference_ffn_pair(x, p1, p2, BF))
+    assert torch.equal(got, ffn.ffn_pair(x, p1, p2, BF))
+
+
+def test_ffn_pair_gelu_outside_the_table(dev):
+    """fc1 weights scaled up so that hidden values reach past the GELU
+    table's range (|h| >= 8) on both signs, and below it (|h| < 2^-10)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = _randn(gen, 700, 128, dtype=BF, dev=dev)
+    p1 = _pair_params(gen, 512, torch.float32, dev, w1_scale=16.0)
+    p2 = _pair_params(gen, 512, torch.float32, dev, w1_scale=16.0)
+    h = torch.matmul(ffn.layer_norm(x, p1[0], p1[1]), p1[2].to(BF).t()).float()
+    assert (h > 8).any() and (h < -8).any() and (h.abs() < 2 ** -10).any()
+    _bf16_close(ffn.ffn_pair(x, p1, p2, BF), ffn.reference_ffn_pair(x, p1, p2, BF))
+
+
+def test_ffn_pair_raises_on_other_widths(dev):
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = _randn(gen, 10, 256, dtype=BF, dev=dev)
+    p = _ffn_params(gen, 256, 1024, dev)
+    with pytest.raises(ValueError):
+        ffn.ffn_pair(x, p, p, BF)  # C 256 runs as two ffn calls, not the pair
+
+
 @pytest.mark.parametrize("factor,c,f", [((2, 2, 2), 256, 128), ((2, 2, 1), 128, 64)])
 def test_pixel_shuffle(dev, factor, c, f):
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -128,6 +170,22 @@ def test_transp_conv(dev, shape, k):
     got = shuffle.transp_conv_kxs(x, w, BF)
     assert got.shape == (shape[0], shape[1] * k[0], shape[2] * k[1], shape[3] * k[2], cout)
     _bf16_close(got, shuffle.reference_transp_conv(x, w, BF))
+
+
+@pytest.mark.parametrize("cin,cout,k", [(1024, 512, (2, 2, 2)), (512, 256, (2, 2, 2)),
+                                         (256, 128, (2, 2, 2)), (128, 64, (2, 2, 1))])
+@pytest.mark.parametrize("shape,wdtype", [((1, 2, 3, 5), torch.float32),     # M 30 < one tile
+                                          ((2, 7, 5, 9), torch.bfloat16)])  # M 630: ragged
+def test_transp_conv_site_geometries(dev, cin, cout, k, shape, wdtype):
+    """K6 at each decoder site's channels and kernel, at reduced M, with the
+    weight as the layer holds it (fp32) or in bf16; a rerun is bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = _randn(gen, *shape, cin, dtype=BF, dev=dev)
+    w = _randn(gen, cin, cout, *k, std=cin ** -0.5, dev=dev).to(wdtype)
+    got = shuffle.transp_conv_kxs(x, w, BF)
+    assert got.shape == (shape[0], shape[1] * k[0], shape[2] * k[1], shape[3] * k[2], cout)
+    _bf16_close(got, shuffle.reference_transp_conv(x, w, BF))
+    assert torch.equal(got, shuffle.transp_conv_kxs(x, w, BF))
 
 
 @pytest.mark.parametrize("c,n", [(128, 1000), (256, 200), (512, 77)])  # ragged last tiles

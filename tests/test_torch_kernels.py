@@ -203,3 +203,39 @@ def test_scatter_rejects_window_outside_canvas():
     with pytest.raises(ValueError):
         scatter.scatter_add_windows(acc, torch.zeros(1, 4, 4, 4, 1), torch.ones(4, 4, 4),
                                     [[0, 0, 7]])
+
+
+def test_pair_and_transp_gates_take_the_main_path_sites():
+    """The redesigned kernels' gates: K4 takes the stage-3 pair (C 128,
+    hidden 512) in bf16; K6 every decoder upsample of CUNet / CTUNet."""
+    bf = torch.bfloat16
+    assert ffn.pair_supports(128, 512, bf)
+    assert not ffn.pair_supports(256, 1024, bf)  # stage 2 runs as two K3 calls
+    assert not ffn.pair_supports(128, 512, torch.float32)
+    assert not ffn.pair_supports(128, 96, bf)  # not a whole number of 64-wide chunks
+    for x, w in (((4, 6, 6, 12, 1024), (1024, 512, 2, 2, 2)),
+                 ((4, 12, 12, 24, 512), (512, 256, 2, 2, 2)),
+                 ((4, 24, 24, 48, 256), (256, 128, 2, 2, 2)),
+                 ((4, 48, 48, 96, 128), (128, 64, 2, 2, 1))):
+        assert shuffle.transp_supports(x, w, bf)
+        assert not shuffle.transp_supports(x, w, torch.float32)
+    assert not shuffle.transp_supports((1, 2, 2, 2, 96), (96, 64, 2, 2, 2), bf)  # Cin % 64
+    assert not shuffle.transp_supports((1, 2, 2, 2, 128), (128, 4, 2, 2, 2), bf)  # Cout % 8
+
+
+def test_gelu_table_range_holds_every_other_value_exactly():
+    """K4 reads bf16(gelu(h)) for a bf16 h from a table when |h| lies in
+    [2^-10, 8) (csrc/ffn.cu, pair::LUT_E0 and LUT_HALF) and computes it
+    otherwise as bf16(h / 2) below, h or -0 above (the formula times 2 or
+    0). Those reductions must equal the fp32 erf formula for every bf16
+    value outside the table."""
+    u = torch.arange(65536, dtype=torch.int32)
+    h = (u << 16).view(torch.float32)
+    formula = (0.5 * h * (1.0 + torch.erf(h * 0.70710678118654752))).to(torch.bfloat16)
+    a, negative = u & 0x7FFF, (u >> 15).bool()
+    below, above = a < (117 << 7), a >= (130 << 7)
+    assert int((~below & ~above & ~negative).sum()) == 13 * 128  # the table's half
+    rule = torch.where(below, 0.5 * h, 0.5 * h * torch.where(negative, 0.0, 2.0))
+    rule = rule.to(torch.bfloat16)
+    outside = (below | above) & torch.isfinite(h)
+    assert torch.equal(rule[outside].view(torch.int16), formula[outside].view(torch.int16))
