@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version and, where one PyTorch call computes the same function,
    that call (median of 5 runs of 10 back-to-back calls); and each
    kernel's bound, the least time an H100 could take for the same bytes and
-   operations. K2 is also logged per pyramid stage against SDPA, K9 per
-   call against cuDNN, with its fused entry beside it.
+   operations. K2 is also logged per pyramid stage against SDPA, K6 per
+   decoder site against cuDNN, K8 per InstanceNorm site (its regime, the C
+   entry alone, F.instance_norm, a rerun bit for bit) with a CTUNet-chunk
+   and a TUNet-chunk total, K9 per call against cuDNN with its fused entry
+   beside it; K3, K4, K6 and K8 also as the C entry alone.
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
@@ -202,8 +205,7 @@ def phase_kernels(device):
 
     from hybrid_ctunet_tpu_torch.cli import bench
     from hybrid_ctunet_tpu_torch.infer.sliding_window import SlidingWindowEngine
-    from hybrid_ctunet_tpu_torch.models import CTUNet
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatter, shuffle
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, pixelweight, scatter, shuffle
     from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
     gen = torch.Generator(device=device)
@@ -305,13 +307,16 @@ def phase_kernels(device):
     want = x + ffn.reference_ffn(x, *p, bf)
     err = check_bf16("ffn stage 2 (110592x256, hidden 1024)", got, want)
     ms = cuda_time_ms(lambda: ffn.ffn(x, *p, bf, residual=True))
+    fn, args, _, keep = ffn.ffn_call(x, p, bf, residual=True)
+    alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
     plain = cuda_time_ms(lambda: x + ffn.reference_ffn(x, *p, bf))
-    log(f"  ffn: {ms!r} ms, plain {plain!r} ms")
+    log(f"  ffn: {ms!r} ms, kernel alone {alone!r} ms, plain {plain!r} ms per call")
     t = Tally(library=False)
     rows = x.numel() // 256
     t.add(err, 2, ms, plain, 2 * nbytes(x) + nbytes(*p), 4 * rows * 256 * 1024,
           fp32_flops=ffn_fp32_flops(rows, 256, 1024))
-    results["ffn"] = t.row()
+    results["ffn"] = {**t.row(), "kernel_alone_ms": 2 * alone}
+    del keep
 
     # K4: stage-3 FFN pair, 1 call per chunk
     x = randn(CHUNK, 48, 48, 96, 128, dtype=bf)
@@ -404,19 +409,43 @@ def phase_kernels(device):
     results["pixelweight"] = t.row()
     del x1, x2, got, want
 
-    # K8: every conv-path InstanceNorm of one CTUNet res-only chunk (the
-    # shapes recorded from a forward on the meta device); library:
-    # F.instance_norm (+ in-place F.leaky_relu_) on the channels-last view
-    meta = CTUNet(out_channels=bench.OUT_CHANNELS, model_depth=101, patch_frame=8,
-                  dtype=bf, device="meta")
-    sites = record_norm_sites(meta, torch.empty(CHUNK, *bench.ROI, 1, device="meta"),
-                              res_only=True)
-    log(f"  instance_norm sites per CTUNet chunk: {sum(sites.values())} calls, "
-        f"{len(sites)} distinct (shape, act)")
-    if sum(sites.values()) != tree_launches(meta, res_only=True)["instance_norm"]:
-        raise AssertionError("recorded InstanceNorm sites differ from the module tree's count")
-    t = Tally(library=True)
-    for (shape, act), n in sorted(sites.items()):
+    results["instance_norm"] = norm_rows(randn, nbytes)
+    results["conv3x3_winograd"] = winograd_rows(randn, nbytes)
+    return results
+
+
+def norm_rows(randn, nbytes):
+    """K8 at every conv-path InstanceNorm of one CTUNet res-only chunk (the
+    row) and of one TUNet chunk (``tunet_chunk``), the shapes recorded from
+    forwards on the meta device. Each (shape, act) is held to its plain
+    version and to itself on a rerun, bit for bit, and timed through the
+    wrapper, as the C entry alone (``norm.norm_call``) and as the library
+    call, F.instance_norm (+ in-place F.leaky_relu_) on the channels-last
+    view; its regime is ``norm.plan``'s."""
+    import torch
+    import torch.nn.functional as F
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
+    from hybrid_ctunet_tpu_torch.ops import norm
+
+    bf = torch.bfloat16
+    x_meta = torch.empty(CHUNK, *bench.ROI, 1, device="meta")
+    ct_model = CTUNet(out_channels=bench.OUT_CHANNELS, model_depth=101, patch_frame=8,
+                      dtype=bf, device="meta")
+    tu_model = TUNet(out_channels=bench.OUT_CHANNELS, patch_frame=8, dtype=bf, device="meta")
+    census = {"ctunet": record_norm_sites(ct_model, x_meta, res_only=True),
+              "tunet": record_norm_sites(tu_model, x_meta)}
+    for name, model, kw in (("ctunet", ct_model, {"res_only": True}), ("tunet", tu_model, {})):
+        calls = sum(census[name].values())
+        log(f"  instance_norm sites per {name} chunk: {calls} calls, "
+            f"{len(census[name])} distinct (shape, act)")
+        if calls != tree_launches(model, **kw)["instance_norm"]:
+            raise AssertionError(f"recorded {name} InstanceNorm sites differ from the module tree's")
+    tallies = {name: Tally(library=True) for name in census}
+    alone_sums = dict.fromkeys(census, 0.0)
+    sites = []
+    for shape, act in sorted(set(census["ctunet"]) | set(census["tunet"])):
         x = randn(*shape, dtype=bf, std=2.0, mean=0.5)
         run = (lambda: norm.instance_norm_leaky(x)) if act else (lambda: norm.instance_norm(x))
 
@@ -428,15 +457,34 @@ def phase_kernels(device):
             y = F.instance_norm(x.permute(0, 4, 1, 2, 3), eps=1e-5)
             return F.leaky_relu_(y, 0.01) if act else y
 
-        err = check_bf16(f"instance_norm {shape} act={act} x{n}", run(), plain_fn())
-        ms, plain, lib = cuda_time_ms(run), cuda_time_ms(plain_fn), cuda_time_ms(lib_fn)
-        log(f"  instance_norm {shape} act={act}: {ms!r} ms, plain {plain!r} ms, "
-            f"F.instance_norm {lib!r} ms")
-        t.add(err, n, ms, plain, 2 * nbytes(x), 5 * x.numel(), lib)
+        got = run()
+        err = check_bf16(f"instance_norm {shape} act={act}", got, plain_fn())
+        if not torch.equal(got, run()):
+            raise AssertionError(f"instance_norm {shape} act={act}: a rerun is not bit-identical")
+        del got
+        fn, args, _, p = norm.norm_call(x, 1e-5, 0.01 if act else None)
+        ms, alone = cuda_time_ms(run), cuda_time_ms(lambda: fn(*args))
+        plain, lib = cuda_time_ms(plain_fn), cuda_time_ms(lib_fn)
+        regime = "onchip" if p.onchip else "two-pass"
+        site = Tally(library=True)
+        site.add(err, 1, ms, plain, 2 * nbytes(x), 5 * x.numel(), lib)
+        row = site.row()
+        log(f"  instance_norm {shape} act={act} ({regime}, rerun bit-identical): {ms!r} ms, kernel "
+            f"alone {alone!r} ms, plain {plain!r} ms, F.instance_norm {lib!r} ms, bound "
+            f"{row['bound_ms']!r} ms")
+        calls = {name: census[name].get((shape, act), 0) for name in census}
+        for name, n in calls.items():
+            if n:
+                tallies[name].add(err, n, ms, plain, 2 * nbytes(x), 5 * x.numel(), lib)
+                alone_sums[name] += n * alone
+        sites.append({"x": list(shape), "act": act, "calls": calls, "regime": regime,
+                      "plan": p._asdict(), **row, "kernel_alone_ms": alone})
         del x
-    results["instance_norm"] = t.row()
-    results["conv3x3_winograd"] = winograd_rows(randn, nbytes)
-    return results
+    tu = {**tallies["tunet"].row(), "kernel_alone_ms": alone_sums["tunet"]}
+    log(f"  instance_norm per TUNet chunk: {tu['ms']!r} ms (alone {tu['kernel_alone_ms']!r}), "
+        f"F.instance_norm {tu['library_ms']!r} ms, bound {tu['bound_ms']!r} ms")
+    return {**tallies["ctunet"].row(), "kernel_alone_ms": alone_sums["ctunet"], "sites": sites,
+            "tunet_chunk": tu}
 
 
 def winograd_rows(randn, nbytes):

@@ -1,6 +1,7 @@
-// Transformer FeedForward on a row tile: LN (fp32, eps 1e-5) -> fc1 ->
-// erf-GELU -> fc2 (+ bias) [+ residual] (entry `ffn`, K3), and the pair form
-// y = x + FFN1(x), z = y + FFN2(y) with y kept on chip (entry `ffn_pair`, K4).
+// Transformer FeedForward on Hopper: LN (fp32, eps 1e-5) -> fc1 -> erf-GELU
+// -> fc2 (+ bias) [+ residual] (entry `ffn`, K3, C 128 or 256), and the pair
+// form y = x + FFN1(x), z = y + FFN2(y) with y kept on chip (entry
+// `ffn_pair`, K4, C 128).
 //
 // Replaces hybrid_ctunet_tpu/ops/ffn_pallas.py:_fused_ffn_impl (_kernel) and
 // :_fused_ffn_pair_impl (_pair_kernel). Rounding points follow the JAX
@@ -13,291 +14,76 @@
 // device memory twice per FFN. Fused, device traffic is x in and out back;
 // what is left is tensor-core work (2 x rows x C x H x 2 FLOP per FFN) and,
 // beside it on the fp32 units, the bias, rounding and erff GELU of every
-// hidden element (stage 3 of TUNet: 2 x 884,736 x 512 of them per pair).
+// hidden element.
 //
-// `ffn` (K3, C 128 or 256): one block of 8 warps per 64-row tile. x and the
-// LN output live in shared memory; the hidden dim is streamed in chunks of
-// 64: the fc1 and fc2 weight slices of the chunk are staged in shared memory,
-// the 64 x 64 fc1 tile is computed on the tensor cores (WMMA bf16, fp32
-// accumulate), biased and GELU'd in shared memory, and multiplied into the
-// 64 x C fp32 fc2 accumulator, which stays in registers for the whole hidden
-// loop.
-//
-// `ffn_pair` (K4, C 128) on Hopper: a persistent grid, one CTA per SM, of two
+// Both entries share one design, a persistent grid (one CTA per SM) of two
 // consumer warpgroups (64 rows each, a 128-row tile) and one producer
-// warpgroup, which hands its registers to the consumers (setmaxnreg).
-// - A first launch packs both FFNs' weights into bf16 chunk images in the
+// warpgroup, which hands its registers to the consumers (setmaxnreg):
+// - A first launch packs the layer's weights into bf16 chunk images in the
 //   exact shared-memory layout wgmma reads (K-major, 128-byte swizzle): per
-//   64-wide hidden chunk the 64 W1 rows and the 64 W2 columns, 32 KB. So the
+//   64-wide hidden chunk the 64 W1 rows, then the 64 W2 columns. So the
 //   caller's fp32 or bf16 parameters are read as they are, with no torch op.
-// - The producer streams the chunk images through a 3-stage ring by bulk
-//   copy with mbarriers, and the next tile's x (contiguous rows) into the
-//   second of two x buffers while this tile computes.
+// - The producer streams the chunk images through a ring by bulk copy with
+//   mbarriers.
 // - fc1 is wgmma m64n64k16 with A the LN'd tile in shared memory. Its fp32
 //   accumulator is rounded, biased and rounded in registers (bf16x2 adds),
 //   GELU'd and rounded by a 6.5 KB table in shared memory (the erff
 //   formula's bf16 result for every bf16 input that needs one: erff took
-//   half the kernel's time on an NVIDIA H100 80GB HBM3 at 700 W), and
-//   packed as the register A operand of fc2's wgmma m64n128k16: the hidden
-//   activation never leaves registers. fc2's 64 x 128 accumulator stays in
-//   registers for the whole hidden loop.
+//   half of K4's time on an NVIDIA H100 80GB HBM3 at 700 W), and packed as
+//   the register A operand of fc2's wgmma: the hidden activation never
+//   leaves registers. fc2's 64 x C accumulator stays in registers for the
+//   whole hidden loop.
 // - fc2 of chunk j and fc1 of chunk j+1 are issued as one group; the two
 //   warpgroups drift apart, so one's GELU runs under the other's wgmma.
-// - y = x + FFN1(x) overwrites x in shared memory; z overwrites y and leaves
-//   by one bulk store per warpgroup.
+//
+// `ffn` (K3): fc2 issues C/128 wgmma m64n128k16 per k step, so at C 256 a
+// consumer holds a 64 x 256 fp32 accumulator (128 registers) beside fc1's
+// 32 and the 16 of the A operand, under the 232 that setmaxnreg gives it.
+// Shared memory holds the ring (128 KB: entries of one chunk's W1 rows or
+// its W2 columns, C x 128 bytes each), the LN'd tile and the parameters;
+// x is not staged: the producer prefetches the CTA's next tile into L2,
+// the consumers read their rows for the LN from there and again for the
+// residual, and the output leaves through shared memory (over the LN'd
+// rows) in whole 16-byte row pieces.
+//
+// `ffn_pair` (K4): the ring holds whole chunk images (32 KB, 3 stages); the
+// producer also bulk-copies the next tile's x into the second of two x
+// buffers while this tile computes; y = x + FFN1(x) overwrites x in shared
+// memory, z overwrites y and leaves by one bulk store per warpgroup.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include "sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 64;   // rows per block
-constexpr int HC = 64;   // hidden chunk
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-// Shared-memory tiles read by the tensor cores get their rows padded by 16
-// bytes (8 bf16 / 4 fp32), so that the 16 rows of a fragment start in
-// different banks.
-constexpr int PAD16 = 8;
-constexpr int PAD32 = 4;
-constexpr int HCP = HC + PAD16;  // row length of the fc2 slice and GELU tile
-constexpr int HCF = HC + PAD32;  // row length of the fp32 fc1 tile
-
-struct FfnParams {
-  const float* lnw;  // (C) fp32
-  const float* lnb;  // (C) fp32
-  const bf16* w1;    // (H, C): fc1 weight, torch Linear layout
-  const bf16* b1;    // (H)
-  const bf16* w2;    // (C, H): fc2 weight
-  const bf16* b2;    // (C)
-};
-
-template <int C>
-constexpr size_t smem_bytes() {
-  // sX [BM][C], sY [BM][C+8], sW1 [HC][C+8], sW2 [C][HC+8], sH fp32 [BM][HC+4],
-  // sHb [BM][HC+8]; the fp32 output staging [BM][C+4] reuses sW1 + sW2
-  return (BM * C + BM * (C + PAD16) + HC * (C + PAD16) + C * HCP + BM * HCP) * sizeof(bf16) +
-         BM * HCF * sizeof(float);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// sY = bf16(LN(sX)), one warp per row
-template <int C>
-__device__ void layer_norm_tile(const bf16* sX, bf16* sY, const float* lnw, const float* lnb) {
-  constexpr int PER = C / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += NWARPS) {
-    float xv[PER];
-    float s = 0.f;
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      xv[u] = __bfloat162float(sX[r * C + lane + 32 * u]);
-      s += xv[u];
-    }
-    const float mean = warp_sum(s) / C;
-    float ss = 0.f;
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const float d = xv[u] - mean;
-      ss += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / C + 1e-5f);
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int c = lane + 32 * u;
-      sY[r * (C + PAD16) + c] = __float2bfloat16((xv[u] - mean) * rstd * lnw[c] + lnb[c]);
-    }
-  }
-}
-
-// One FFN over the tile in sX. Result bf16(bf16(acc) + b2) [+ sX] goes to
-// global rows [row0, row0 + BM) of gout (rows < nrows).
-template <int C>
-__device__ void ffn_tile(bf16* sX, unsigned char* smem_rest, const FfnParams p, int H,
-                         bool residual, bf16* gout, long long row0, long long nrows) {
-  constexpr int NT = C / 32;  // fc2 output tiles per warp: C/16 tiles over 2 warp columns
-  constexpr int CP = C + PAD16;
-  static_assert(BM * (C + PAD32) * sizeof(float) <= (HC * CP + C * HCP) * sizeof(bf16),
-                "fp32 output staging must fit over sW1 + sW2");
-  bf16* sY = reinterpret_cast<bf16*>(smem_rest);
-  bf16* sW1 = sY + BM * CP;
-  bf16* sW2 = sW1 + HC * CP;
-  float* sH = reinterpret_cast<float*>(sW2 + C * HCP);
-  bf16* sHb = reinterpret_cast<bf16*>(sH + BM * HCF);
-  const int warp = threadIdx.x / 32;
-  const int mw = warp % 4, ng = warp / 4;
-
-  layer_norm_tile<C>(sX, sY, p.lnw, p.lnb);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int hc = 0; hc < H; hc += HC) {
-    // stage fc1 rows [hc, hc+HC) and fc2 columns [hc, hc+HC)
-    for (int i = threadIdx.x; i < HC * C / 8; i += THREADS) {
-      const int n = i / (C / 8), part = i % (C / 8);
-      *reinterpret_cast<uint4*>(sW1 + n * CP + part * 8) =
-          *reinterpret_cast<const uint4*>(p.w1 + (long long)(hc + n) * C + part * 8);
-    }
-    for (int i = threadIdx.x; i < C * HC / 8; i += THREADS) {
-      const int n = i / (HC / 8), part = i % (HC / 8);
-      *reinterpret_cast<uint4*>(sW2 + n * HCP + part * 8) =
-          *reinterpret_cast<const uint4*>(p.w2 + (long long)n * H + hc + part * 8);
-    }
-    __syncthreads();  // also orders the LN writes of sY before the first use
-
-    // hidden tile (BM x HC) = sY @ W1c^T; warp: row tile mw, column tiles 2ng, 2ng+1
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[2];
-      wmma::fill_fragment(hacc[0], 0.f);
-      wmma::fill_fragment(hacc[1], 0.f);
-      for (int kk = 0; kk < C / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sY + mw * 16 * CP + kk * 16, CP);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, sW1 + (ng * 2 + j) * 16 * CP + kk * 16, CP);
-          wmma::mma_sync(hacc[j], a, b, hacc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sH + mw * 16 * HCF + (ng * 2 + j) * 16, hacc[j], HCF,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // h = bf16(bf16(h) + b1); g = bf16(gelu(h))
-    for (int i = threadIdx.x; i < BM * HC; i += THREADS) {
-      const int r = i / HC, col = i % HC;
-      const float hv = round_bf16(round_bf16(sH[r * HCF + col]) + __bfloat162float(p.b1[hc + col]));
-      sHb[r * HCP + col] = __float2bfloat16(0.5f * hv * (1.f + erff(hv * 0.70710678118654752f)));
-    }
-    __syncthreads();
-
-    // acc (BM x C) += g @ W2c^T; warp: row tile mw, column tiles ng*NT ..
-    for (int kk = 0; kk < HC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sHb + mw * 16 * HCP + kk * 16, HCP);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, sW2 + (ng * NT + j) * 16 * HCP + kk * 16, HCP);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();  // before the next chunk overwrites sW1, sW2, sHb
-  }
-
-  // fp32 staging of the output tile [BM][C+4] over sW1 + sW2
-  constexpr int CF = C + PAD32;
-  float* sO = reinterpret_cast<float*>(sW1);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    wmma::store_matrix_sync(sO + mw * 16 * CF + (ng * NT + j) * 16, acc[j], CF,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    float o = round_bf16(round_bf16(sO[r * CF + c]) + __bfloat162float(p.b2[c]));
-    if (residual) o = o + __bfloat162float(sX[i]);
-    if (row0 + r < nrows) gout[(row0 + r) * C + c] = __float2bfloat16(o);
-  }
-}
-
-template <int C>
-__device__ void load_tile(const bf16* x, bf16* sX, long long row0, long long nrows) {
-  for (int i = threadIdx.x; i < BM * C / 8; i += THREADS) {
-    const int r = i / (C / 8);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows) val = reinterpret_cast<const uint4*>(x + row0 * C)[i];
-    reinterpret_cast<uint4*>(sX)[i] = val;
-  }
-  __syncthreads();
-}
-
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-    ffn_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, long long nrows, int H,
-               int residual, const FfnParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  const long long row0 = (long long)blockIdx.x * BM;
-  load_tile<C>(x, sX, row0, nrows);
-  ffn_tile<C>(sX, smem + BM * C * sizeof(bf16), p, H, residual != 0, out, row0, nrows);
-}
-
-
-// x, out: (nrows, C) bf16. LN params fp32; weights and biases bf16 in torch
-// Linear layout (fc1 (H, C), fc2 (C, H)).
-extern "C" int ffn(const void* x, void* out, long long nrows, int C, int H, int residual,
-                   const void* lnw, const void* lnb, const void* w1, const void* b1,
-                   const void* w2, const void* b2, void* stream) {
-  if (nrows < 1 || H < HC || H % HC) return (int)cudaErrorInvalidValue;
-  const FfnParams p = {(const float*)lnw, (const float*)lnb, (const bf16*)w1,
-                       (const bf16*)b1,   (const bf16*)w2,   (const bf16*)b2};
-  const unsigned blocks = (unsigned)((nrows + BM - 1) / BM);
-  cudaStream_t s = (cudaStream_t)stream;
-  size_t smem;
-  cudaError_t err;
-  if (C == 128) {
-    smem = smem_bytes<128>();
-    err = cudaFuncSetAttribute(ffn_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_kernel<128><<<blocks, THREADS, smem, s>>>((const bf16*)x, (bf16*)out, nrows, H,
-                                                  residual, p);
-  } else if (C == 256) {
-    smem = smem_bytes<256>();
-    err = cudaFuncSetAttribute(ffn_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_kernel<256><<<blocks, THREADS, smem, s>>>((const bf16*)x, (bf16*)out, nrows, H,
-                                                  residual, p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// K4: the pair on Hopper (see the note at the head of the file)
-namespace pair {
+// What both entries share: the weight packing, the GELU table, the LN into a
+// swizzled tile, fc1 and the GELU epilogue in registers.
+namespace ffnk {
 
-constexpr int C = 128;                   // stage-3 width
-constexpr int HC = 64;                   // hidden chunk
-constexpr int BM = 128;                  // rows per tile, 64 per consumer warpgroup
+constexpr int HC = 64;          // hidden chunk
+constexpr int BM = 128;         // rows per tile, 64 per consumer warpgroup
 constexpr int CONSUMERS = 2;
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
-constexpr int STAGES = 3;
+constexpr int KB_BYTES = BM * 128;              // one 64-wide K block of the LN'd tile
 // registers a thread after setmaxnreg: the producer gives its share to the
 // consumers (the block is compiled at 65536 / 384 = 168)
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int W1_BYTES = HC * C * 2;     // W1 rows of a chunk: 2 K blocks x 64 rows x 128 B
-constexpr int CHUNK_BYTES = 2 * W1_BYTES;  // + W2 columns: 128 rows x 128 B
-constexpr int X_BYTES = BM * C * 2;
-constexpr int A_BYTES = BM * C * 2;      // LN'd tile: 2 K blocks x 128 rows x 128 B
-constexpr int KB_BYTES = BM * 128;       // one K block of the LN'd tile
-constexpr int FIXED_SMEM = STAGES * CHUNK_BYTES + 2 * X_BYTES + A_BYTES + 128;
+
+// chunk image of one FFN: W1 rows [64j, 64j+64) as C/64 K blocks of 64 rows x
+// 128 B, then W2 columns [64j, 64j+64) as C rows x 128 B, each row swizzled
+template <int C>
+struct Chunk {
+  static constexpr int W1_BYTES = HC * C * 2;
+  static constexpr int BYTES = 2 * W1_BYTES;
+};
 
 // fp32 parameters per FFN in the packed buffer and in shared memory:
 // lnw [C], lnb [C], b2 [C], b1 [H] (the biases rounded to bf16)
-__host__ __device__ constexpr int nparams(int H) { return 3 * C + H; }
+__host__ __device__ constexpr int nparams(int C, int H) { return 3 * C + H; }
 
 // GELU table: the hidden value h is a bf16 number, so bf16(gelu(h)) is a
 // function of its 16 bits. The table holds it, computed by the same fp32
@@ -309,11 +95,10 @@ constexpr int LUT_E0 = 117;
 constexpr int LUT_HALF = 13 * 128;
 constexpr int LUT_BYTES = 2 * LUT_HALF * 2;
 
-__host__ size_t smem_bytes(int H) {
-  return FIXED_SMEM + 2 * nparams(H) * sizeof(float) + LUT_BYTES + 1024;  // + alignment slack
-}
-__host__ size_t packed_bytes(int H) {
-  return (size_t)2 * (H / HC) * CHUNK_BYTES + 2 * nparams(H) * sizeof(float) + LUT_BYTES;
+// packed: nffn x (H/64) chunk images, nffn x nparams floats, the table
+__host__ size_t packed_bytes(int C, int nffn, int H) {
+  return (size_t)nffn * (H / HC) * (2 * HC * C * 2) + (size_t)nffn * nparams(C, H) * 4 +
+         LUT_BYTES;
 }
 
 struct Src {
@@ -352,12 +137,12 @@ __device__ __forceinline__ float load(const void* p, long long i, int bf) {
 }
 
 // One thread per 16-byte unit of the chunk images, then one per parameter,
-// then one per GELU table entry.
-// Image of chunk j: W1 rows [64j, 64j+64) as 2 K blocks of 64 rows x 128 B,
-// then W2 columns [64j, 64j+64) as 128 rows x 128 B, each row swizzled.
-__global__ void pack_kernel(Src s1, Src s2, int H, int bf, unsigned char* packed) {
-  const int nch = H / HC;
-  const long long units = 2LL * nch * (CHUNK_BYTES / 16);
+// then one per GELU table entry; FFN f of the `nffn` (1 or 2) is s1 or s2.
+template <int C>
+__global__ void pack_kernel(Src s1, Src s2, int nffn, int H, int bf, unsigned char* packed) {
+  constexpr int W1_BYTES = Chunk<C>::W1_BYTES, CHUNK_BYTES = Chunk<C>::BYTES;
+  const int nch = H / HC, np = nparams(C, H);
+  const long long units = (long long)nffn * nch * (CHUNK_BYTES / 16);
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q < units) {
     const int per_ffn = nch * (CHUNK_BYTES / 16);
@@ -386,16 +171,16 @@ __global__ void pack_kernel(Src s1, Src s2, int H, int bf, unsigned char* packed
     return;
   }
   const long long i = q - units;
-  if (i >= 2LL * nparams(H)) {
-    const long long e = i - 2LL * nparams(H);
+  if (i >= (long long)nffn * np) {
+    const long long e = i - (long long)nffn * np;
     if (e >= 2 * LUT_HALF) return;
     const uint32_t bits = ((uint32_t)(e / LUT_HALF) << 15) | ((LUT_E0 << 7) + (uint32_t)(e % LUT_HALF));
     const bf16 g = __float2bfloat16(gelu(__uint_as_float(bits << 16)));
-    reinterpret_cast<unsigned short*>(packed + units * 16 + 2LL * nparams(H) * 4)[e] =
+    reinterpret_cast<unsigned short*>(packed + units * 16 + (long long)nffn * np * 4)[e] =
         *reinterpret_cast<const unsigned short*>(&g);
     return;
   }
-  const int f = (int)(i / nparams(H)), c = (int)(i % nparams(H));
+  const int f = (int)(i / np), c = (int)(i % np);
   const Src& s = f ? s2 : s1;
   float v;
   if (c < C)
@@ -409,26 +194,57 @@ __global__ void pack_kernel(Src s1, Src s2, int H, int bf, unsigned char* packed
   reinterpret_cast<float*>(packed + units * 16)[i] = v;
 }
 
-// The warpgroup's 64 rows of xs (row-major) -> bf16(LN) into the swizzled
-// K-major tile `as` (K block kb at as + kb * KB_BYTES); warp w does rows
-// 16w..16w+15, four at a time so that their reductions overlap; a lane holds
-// 4 columns of each.
-__device__ __forceinline__ void layer_norm_rows(const bf16* xs, unsigned char* as,
+template <int C>
+static cudaError_t pack(Src s1, Src s2, int nffn, int H, int bf, unsigned char* packed,
+                        cudaStream_t s) {
+  const long long work = (long long)nffn * (H / HC) * (Chunk<C>::BYTES / 16) +
+                         (long long)nffn * nparams(C, H) + 2 * LUT_HALF;
+  pack_kernel<C><<<(unsigned)((work + 255) / 256), 256, 0, s>>>(s1, s2, nffn, H, bf, packed);
+  return cudaGetLastError();
+}
+
+// The warpgroup's 64 rows at src (row-major, the first `valid` of them read,
+// the rest taken as 0) -> bf16(LN) into the swizzled K-major tile `as` (K
+// block kb at as + kb * KB_BYTES); warp w does rows 16w..16w+15, four at a
+// time so that their reductions overlap; a lane holds C/32 columns of each.
+template <int C>
+__device__ __forceinline__ void layer_norm_rows(const bf16* src, int valid, unsigned char* as,
                                                 const float* lnw, const float* lnb, int warp,
                                                 int lane) {
-  constexpr int R = 4;
-  const int c0 = 4 * lane;
-  const float4 w = *reinterpret_cast<const float4*>(lnw + c0);
-  const float4 b = *reinterpret_cast<const float4*>(lnb + c0);
+  constexpr int R = 4, PER = C / 32;
+  static_assert(PER == 4 || PER == 8, "C 128 or 256");
+  const int c0 = PER * lane;
+  float w[PER], b[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    w[e] = lnw[c0 + e];
+    b[e] = lnb[c0 + e];
+  }
   for (int rr = 0; rr < 16; rr += R) {
-    float v[R][4], sum[R], ss[R];
+    float v[R][PER], sum[R], ss[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(xs + (warp * 16 + rr + q) * C + c0);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      v[q][0] = lo.x, v[q][1] = lo.y, v[q][2] = hi.x, v[q][3] = hi.y;
-      sum[q] = v[q][0] + v[q][1] + v[q][2] + v[q][3];
+      const int r = warp * 16 + rr + q;
+      uint32_t raw[PER / 2];
+#pragma unroll
+      for (int e = 0; e < PER / 2; ++e) raw[e] = 0;
+      if (r < valid) {
+        if constexpr (PER == 4) {
+          const uint2 u = *reinterpret_cast<const uint2*>(src + r * C + c0);
+          raw[0] = u.x, raw[1] = u.y;
+        } else {
+          const uint4 u = *reinterpret_cast<const uint4*>(src + r * C + c0);
+          raw[0] = u.x, raw[1] = u.y, raw[2] = u.z, raw[3] = u.w;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < PER / 2; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[e]));
+        v[q][2 * e] = f.x, v[q][2 * e + 1] = f.y;
+      }
+      sum[q] = v[q][0];
+#pragma unroll
+      for (int e = 1; e < PER; ++e) sum[q] += v[q][e];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -439,7 +255,7 @@ __device__ __forceinline__ void layer_norm_rows(const bf16* xs, unsigned char* a
       const float mean = sum[q] / C;
       ss[q] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < PER; ++e) {
         v[q][e] -= mean;
         ss[q] += v[q][e] * v[q][e];
       }
@@ -451,16 +267,22 @@ __device__ __forceinline__ void layer_norm_rows(const bf16* xs, unsigned char* a
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const float rstd = rsqrtf(ss[q] / C + 1e-5f);
-      uint2 y;
-      y.x = sm90::pack_bf16(v[q][0] * rstd * w.x + b.x, v[q][1] * rstd * w.y + b.y);
-      y.y = sm90::pack_bf16(v[q][2] * rstd * w.z + b.z, v[q][3] * rstd * w.w + b.w);
-      const int r = warp * 16 + rr + q;
-      *reinterpret_cast<uint2*>(as + (c0 / 64) * KB_BYTES + sm90::swz(r, c0 % 64)) = y;
+      uint32_t y[PER / 2];
+#pragma unroll
+      for (int e = 0; e < PER / 2; ++e)
+        y[e] = sm90::pack_bf16(v[q][2 * e] * rstd * w[2 * e] + b[2 * e],
+                               v[q][2 * e + 1] * rstd * w[2 * e + 1] + b[2 * e + 1]);
+      unsigned char* dst = as + (c0 / 64) * KB_BYTES + sm90::swz(warp * 16 + rr + q, c0 % 64);
+      if constexpr (PER == 4)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(y[0], y[1]);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(y[0], y[1], y[2], y[3]);
     }
   }
 }
 
 // fc1 of one chunk: h[64x64] = A (the warpgroup's LN'd rows) x W1c^T
+template <int C>
 __device__ __forceinline__ void issue_fc1(float* h, const unsigned char* as,
                                           const unsigned char* w1) {
 #pragma unroll
@@ -490,11 +312,251 @@ __device__ __forceinline__ void gelu_pack(const float* h, uint32_t* a, const flo
   }
 }
 
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (sm90::smem_addr(p) & 1023)) & 1023);
+}
+
+}  // namespace ffnk
+
+// ---------------------------------------------------------------------------
+// K3: one FFN, C 128 or 256 (see the note at the head of the file)
+namespace single {
+using namespace ffnk;
+
+constexpr int RING_BYTES = 128 * 1024;
+
+template <int C>
+struct Cfg {
+  static constexpr int ENTRY = Chunk<C>::W1_BYTES;  // = C * 128: W1 rows or W2 columns of a chunk
+  static constexpr int STAGES = RING_BYTES / ENTRY;
+  static constexpr int A_BYTES = BM * C * 2;
+  static constexpr int FIXED = RING_BYTES + A_BYTES + 128;  // + the mbarriers
+};
+
+template <int C>
+__host__ size_t smem_bytes(int H) {
+  return Cfg<C>::FIXED + nparams(C, H) * sizeof(float) + LUT_BYTES + 1024;  // + alignment slack
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    ffn_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int nrows, int H,
+               int residual, const unsigned char* __restrict__ packed) {
+  using K = Cfg<C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* ring = base;
+  unsigned char* sA = base + RING_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sA + K::A_BYTES);
+  uint64_t* empty = full + K::STAGES;
+  float* prm = reinterpret_cast<float*>(base + K::FIXED);
+  unsigned short* lut = reinterpret_cast<unsigned short*>(prm + nparams(C, H));
+
+  const int nch = H / HC;
+  const int ntiles = (nrows + BM - 1) / BM;
+  const float* gprm = reinterpret_cast<const float*>(packed + (size_t)nch * Chunk<C>::BYTES);
+  for (int i = threadIdx.x; i < nparams(C, H) + LUT_BYTES / 4; i += THREADS) prm[i] = gprm[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      sm90::bar_init(&full[s], 1);
+      sm90::bar_init(&empty[s], CONSUMERS);
+    }
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {  // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x % 128) return;
+    auto tile_bytes = [&](int tile) { return (uint32_t)min(BM, nrows - tile * BM) * C * 2; };
+    const int first = blockIdx.x, step = gridDim.x;
+    if (first < ntiles) sm90::bulk_prefetch_l2(x + (size_t)first * BM * C, tile_bytes(first));
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = first; tile < ntiles; tile += step) {
+      const int next = tile + step;
+      if (next < ntiles) sm90::bulk_prefetch_l2(x + (size_t)next * BM * C, tile_bytes(next));
+      for (int q = 0; q < 2 * nch; ++q) {  // W1 rows, then W2 columns, of each chunk
+        sm90::bar_wait(&empty[s], ph ^ 1);
+        sm90::bar_expect_tx(&full[s], K::ENTRY);
+        sm90::bulk_g2s(ring + s * K::ENTRY, packed + (size_t)q * K::ENTRY, K::ENTRY, &full[s]);
+        if (++s == K::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  unsigned char* as = sA + wg * 64 * 128;
+  const float* b2 = prm + 2 * C;
+  const float* b1 = prm + 3 * C;
+  constexpr int NH = C / 128;  // fc2's 128-wide column halves
+  float acc[64 * NH], h[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < 64 * NH; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+  auto take = [&]() {  // the next ring entry, once it has landed
+    const int cur = s;
+    sm90::bar_wait(&full[cur], ph);
+    if (++s == K::STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+    return cur;
+  };
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long row0 = (long long)tile * BM + wg * 64;
+    const int valid = (int)max(0LL, min(64LL, (long long)nrows - row0));
+    layer_norm_rows<C>(x + row0 * C, valid, as, prm, prm + C, warp, lane);
+    sm90::fence_async_smem();
+    sm90::named_sync(1 + wg, 128);
+
+    int w1 = take();
+    sm90::wg_fence();
+    issue_fc1<C>(h, as, ring + w1 * K::ENTRY);
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sm90::reg_fence(h[i]);
+    if (t == 0) sm90::bar_arrive(&empty[w1]);
+    gelu_pack(h, a, b1, cq, lut);
+    for (int j = 0; j < nch; ++j) {
+      const int w2 = take();
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HC / 16; ++kk)
+#pragma unroll
+        for (int nh = 0; nh < NH; ++nh)
+          sm90::wgmma_64x128_rs(acc + 64 * nh, a + 4 * kk,
+                                sm90::desc_sw128(ring + w2 * K::ENTRY + nh * 128 * 128) + 2 * kk,
+                                j > 0 || kk > 0);
+      if (j + 1 < nch) {
+        w1 = take();
+        issue_fc1<C>(h, as, ring + w1 * K::ENTRY);
+      }
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64 * NH; ++i) sm90::reg_fence(acc[i]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::reg_fence(h[i]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sm90::reg_fence(a[i]);
+      if (t == 0) {
+        sm90::bar_arrive(&empty[w2]);
+        if (j + 1 < nch) sm90::bar_arrive(&empty[w1]);
+      }
+      if (j + 1 < nch) gelu_pack(h, a, b1 + HC * (j + 1), cq, lut);
+    }
+
+    // bf16(bf16(acc) + b2), staged over the warpgroup's LN'd rows (the last
+    // fc1 has read them), then [+ x] and out in 16-byte row pieces
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = 128 * nh + 8 * i + cq;
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(bb.x, bb.y);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 64 * nh + 4 * i + 2 * half;
+          *reinterpret_cast<__nv_bfloat162*>(as + (col / 64) * KB_BYTES +
+                                             sm90::swz(r0 + 8 * half, col % 64)) =
+              round_add(acc[e], acc[e + 1], b);
+        }
+      }
+    sm90::named_sync(1 + wg, 128);
+    for (int u = t; u < valid * (C / 8); u += 128) {
+      const int row = u / (C / 8), col = (u % (C / 8)) * 8;
+      uint4 o = *reinterpret_cast<const uint4*>(as + (col / 64) * KB_BYTES + sm90::swz(row, col % 64));
+      const size_t g = (size_t)(row0 + row) * C + col;
+      if (residual) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(x + g);
+        __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&o);
+        const __nv_bfloat162* px = reinterpret_cast<const __nv_bfloat162*>(&xv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) po[e] = __hadd2(po[e], px[e]);
+      }
+      *reinterpret_cast<uint4*>(out + g) = o;
+    }
+    sm90::named_sync(1 + wg, 128);  // read out before the next tile's LN
+  }
+}
+
+template <int C>
+static cudaError_t launch(const bf16* x, bf16* out, int nrows, int H, int residual,
+                          const unsigned char* packed, cudaStream_t s) {
+  const size_t smem = smem_bytes<C>(H);
+  const cudaError_t err =
+      cudaFuncSetAttribute(ffn_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (nrows + BM - 1) / BM;
+  const int grid = ntiles < sm90::num_sms() ? ntiles : sm90::num_sms();
+  ffn_kernel<C><<<grid, THREADS, smem, s>>>(x, out, nrows, H, residual, packed);
+  return cudaGetLastError();
+}
+
+}  // namespace single
+
+// bytes of the scratch `packed` that ffn takes for width C, hidden H
+extern "C" int ffn_packed_bytes(int C, int H) { return (int)ffnk::packed_bytes(C, 1, H); }
+
+// x, out: (nrows, C) bf16, C 128 or 256, 16-byte aligned. LN params fp32,
+// weights and biases (fp32 if wbf16 == 0, else bf16) in torch Linear layout
+// (fc1 (H, C), fc2 (C, H)); packed: ffn_packed_bytes(C, H) bytes of scratch
+// that the first launch fills.
+extern "C" int ffn(const void* x, void* out, long long nrows, int C, int H, int residual,
+                   int wbf16, const void* lnw, const void* lnb, const void* w1, const void* b1,
+                   const void* w2, const void* b2, void* packed, void* stream) {
+  if (nrows < 1 || nrows > 0x7fffffffLL - ffnk::BM || (C != 128 && C != 256) || H < ffnk::HC ||
+      H % ffnk::HC || H > 1024)
+    return (int)cudaErrorInvalidValue;
+  if (((size_t)x | (size_t)out | (size_t)packed) % 16) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ffnk::Src src = {(const float*)lnw, (const float*)lnb, w1, b1, w2, b2};
+  unsigned char* pk = (unsigned char*)packed;
+  cudaError_t err = C == 128 ? ffnk::pack<128>(src, src, 1, H, wbf16, pk, s)
+                             : ffnk::pack<256>(src, src, 1, H, wbf16, pk, s);
+  if (err != cudaSuccess) return (int)err;
+  err = C == 128 ? single::launch<128>((const bf16*)x, (bf16*)out, (int)nrows, H, residual, pk, s)
+                 : single::launch<256>((const bf16*)x, (bf16*)out, (int)nrows, H, residual, pk, s);
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// K4: the pair on Hopper (see the note at the head of the file)
+namespace pair {
+using namespace ffnk;
+
+constexpr int C = 128;                   // stage-3 width
+constexpr int STAGES = 3;
+constexpr int W1_BYTES = Chunk<C>::W1_BYTES;
+constexpr int CHUNK_BYTES = Chunk<C>::BYTES;
+constexpr int X_BYTES = BM * C * 2;
+constexpr int A_BYTES = BM * C * 2;      // LN'd tile: 2 K blocks x 128 rows x 128 B
+constexpr int FIXED_SMEM = STAGES * CHUNK_BYTES + 2 * X_BYTES + A_BYTES + 128;
+
+__host__ size_t smem_bytes(int H) {
+  return FIXED_SMEM + 2 * nparams(C, H) * sizeof(float) + LUT_BYTES + 1024;  // + alignment slack
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
     pair_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int nrows, int H,
                 const unsigned char* __restrict__ packed) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* base = align1024(smem_raw);
   unsigned char* ring = base;
   bf16* sX = reinterpret_cast<bf16*>(base + STAGES * CHUNK_BYTES);
   unsigned char* sA = base + STAGES * CHUNK_BYTES + 2 * X_BYTES;
@@ -503,12 +565,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full_x = empty_w + STAGES;
   uint64_t* empty_x = full_x + 2;
   float* prm = reinterpret_cast<float*>(base + FIXED_SMEM);
-  unsigned short* lut = reinterpret_cast<unsigned short*>(prm + 2 * nparams(H));
+  unsigned short* lut = reinterpret_cast<unsigned short*>(prm + 2 * nparams(C, H));
 
   const int nch = H / HC;
   const int ntiles = (nrows + BM - 1) / BM;
   const float* gprm = reinterpret_cast<const float*>(packed + (size_t)2 * nch * CHUNK_BYTES);
-  for (int i = threadIdx.x; i < 2 * nparams(H) + LUT_BYTES / 4; i += THREADS) prm[i] = gprm[i];
+  for (int i = threadIdx.x; i < 2 * nparams(C, H) + LUT_BYTES / 4; i += THREADS) prm[i] = gprm[i];
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       sm90::bar_init(&full_w[s], 1);
@@ -568,16 +630,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     sm90::bar_wait(&full_x[b], (it >> 1) & 1);
     bf16* xs = sX + b * BM * C + wg * 64 * C;
     for (int f = 0; f < 2; ++f) {
-      const float* lnw = prm + f * nparams(H);
+      const float* lnw = prm + f * nparams(C, H);
       const float* b2 = lnw + 2 * C;
       const float* b1 = lnw + 3 * C;
-      layer_norm_rows(xs, as, lnw, lnw + C, warp, lane);
+      layer_norm_rows<C>(xs, 64, as, lnw, lnw + C, warp, lane);
       sm90::fence_async_smem();
       sm90::named_sync(1 + wg, 128);
 
       sm90::bar_wait(&full_w[s], ph);
       sm90::wg_fence();
-      issue_fc1(h, as, ring + s * CHUNK_BYTES);
+      issue_fc1<C>(h, as, ring + s * CHUNK_BYTES);
       sm90::wg_commit();
       sm90::wg_wait<0>();
 #pragma unroll
@@ -596,7 +658,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           sm90::wgmma_64x128_rs(acc, a + 4 * kk, sm90::desc_sw128(w2) + 2 * kk, j > 0 || kk > 0);
         if (j + 1 < nch) {
           sm90::bar_wait(&full_w[s], ph);
-          issue_fc1(h, as, ring + s * CHUNK_BYTES);
+          issue_fc1<C>(h, as, ring + s * CHUNK_BYTES);
         }
         sm90::wg_commit();
         sm90::wg_wait<0>();
@@ -642,7 +704,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 }  // namespace pair
 
 // bytes of the scratch `packed` that ffn_pair takes for hidden width H
-extern "C" int ffn_pair_packed_bytes(int H) { return (int)pair::packed_bytes(H); }
+extern "C" int ffn_pair_packed_bytes(int H) { return (int)ffnk::packed_bytes(pair::C, 2, H); }
 
 // x, out: (nrows, 128) bf16, 16-byte aligned. Per FFN: LN params fp32,
 // weights and biases (fp32 if wbf16 == 0, else bf16) in torch Linear layout
@@ -653,26 +715,22 @@ extern "C" int ffn_pair(const void* x, void* out, long long nrows, int C, int H,
                         const void* w12, const void* b12, const void* lnw2, const void* lnb2,
                         const void* w21, const void* b21, const void* w22, const void* b22,
                         void* packed, void* stream) {
-  if (nrows < 1 || nrows > 0x7fffffffLL - pair::BM || C != pair::C || H < pair::HC ||
-      H % pair::HC || H > 1024)
+  if (nrows < 1 || nrows > 0x7fffffffLL - ffnk::BM || C != pair::C || H < ffnk::HC ||
+      H % ffnk::HC || H > 1024)
     return (int)cudaErrorInvalidValue;
   if (((size_t)x | (size_t)out | (size_t)packed) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  const pair::Src s1 = {(const float*)lnw1, (const float*)lnb1, w11, b11, w12, b12};
-  const pair::Src s2 = {(const float*)lnw2, (const float*)lnb2, w21, b21, w22, b22};
-  const long long work =
-      2LL * (H / pair::HC) * (pair::CHUNK_BYTES / 16) + 2 * pair::nparams(H) + 2 * pair::LUT_HALF;
-  pair::pack_kernel<<<(unsigned)((work + 255) / 256), 256, 0, s>>>(s1, s2, H, wbf16,
-                                                                   (unsigned char*)packed);
-  cudaError_t err = cudaGetLastError();
+  const ffnk::Src s1 = {(const float*)lnw1, (const float*)lnb1, w11, b11, w12, b12};
+  const ffnk::Src s2 = {(const float*)lnw2, (const float*)lnb2, w21, b21, w22, b22};
+  cudaError_t err = ffnk::pack<pair::C>(s1, s2, 2, H, wbf16, (unsigned char*)packed, s);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = pair::smem_bytes(H);
   err = cudaFuncSetAttribute(pair::pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = (int)((nrows + pair::BM - 1) / pair::BM);
+  const int ntiles = (int)((nrows + ffnk::BM - 1) / ffnk::BM);
   const int grid = ntiles < sm90::num_sms() ? ntiles : sm90::num_sms();
-  pair::pair_kernel<<<grid, pair::THREADS, smem, s>>>((const bf16*)x, (bf16*)out, (int)nrows, H,
+  pair::pair_kernel<<<grid, ffnk::THREADS, smem, s>>>((const bf16*)x, (bf16*)out, (int)nrows, H,
                                                       (const unsigned char*)packed);
   return (int)cudaGetLastError();
 }

@@ -81,6 +81,10 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
+// start bringing `bytes` (a multiple of 16) at src into L2
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
 // 2D tensor-map load of one box at (c0 innermost, c1)
 __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int c0, int c1,
                                             uint64_t* bar) {

@@ -47,31 +47,28 @@ def supports(c: int, hidden: int, dtype) -> bool:
     """Where the single-FFN kernel (K3) engages, as in the JAX package: bf16
     pyramid FFNs with hidden <= 1024 (C 256 at stage 2; stage 3's pair is
     K4, ``pair_supports``). The ViT FFN and stages 0-1 stay plain."""
-    return dtype == torch.bfloat16 and c in (128, 256) and hidden <= 1024 and hidden % _HC == 0
+    return dtype == torch.bfloat16 and c in (128, 256) and hidden % _HC == 0 and 0 < hidden <= 1024
 
 
-def _kernel_params(params, c: int, hidden: int, dtype):
-    ln_w, ln_b, w1, b1, w2, b2 = params
-    if tuple(w1.shape) != (hidden, c) or tuple(w2.shape) != (c, hidden):
-        raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} do not match C={c}")
-    f32 = lambda t: t.float().contiguous()
-    cast = lambda t: t.to(dtype).contiguous()
-    return [f32(ln_w), f32(ln_b), cast(w1), cast(b1), cast(w2), cast(b2)]
-
-
-def _prepare(x, params_list, dtype):
-    if x.dtype != dtype:
-        raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
-    c = x.shape[-1]
-    hidden = params_list[0][2].shape[0]
-    if not supports(c, hidden, dtype):
-        raise ValueError(f"ffn kernel: unsupported C={c} hidden={hidden} {dtype}")
-    x2d = x.reshape(-1, c).contiguous()
-    prepared = [_kernel_params(p, c, hidden, dtype) for p in params_list]
-    for p in prepared:
-        if any(not t.is_cuda or t.device != x.device for t in p):
-            raise ValueError("ffn parameters must be on the input's CUDA device")
-    return x2d, c, hidden, prepared
+def _weights(params_list: Sequence[Sequence], c: int, hidden: int, device):
+    """The FFNs' parameters as the C entries take them: LN scale and shift
+    fp32; weights and biases as the caller holds them, fp32 or bf16 (fp32
+    where they are mixed or another type). No torch op runs on parameters
+    that are already so: the entry's first launch packs them."""
+    weights = [t for p in params_list for t in p[2:]]
+    wdtype = weights[0].dtype
+    if wdtype not in (torch.float32, torch.bfloat16) or any(t.dtype != wdtype for t in weights):
+        wdtype = torch.float32
+    prepared = []
+    for ln_w, ln_b, w1, b1, w2, b2 in params_list:
+        if tuple(w1.shape) != (hidden, c) or tuple(w2.shape) != (c, hidden):
+            raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} do not match "
+                             f"C={c} hidden={hidden}")
+        prepared += [ln_w.float().contiguous(), ln_b.float().contiguous(),
+                     *[t.to(wdtype).contiguous() for t in (w1, b1, w2, b2)]]
+    if any(not t.is_cuda or t.device != device for t in prepared):
+        raise ValueError("ffn parameters must be on the input's CUDA device")
+    return prepared, wdtype
 
 
 def ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype, residual: bool = False):
@@ -88,18 +85,36 @@ def ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype, residual: bool = False):
                      x, ln_w, ln_b, w1, b1, w2, b2)
 
 
-def _launch_ffn(x, params, dtype, residual):
-    x2d, c, hidden, (p,) = _prepare(x, [params], dtype)
+def ffn_call(x, params: Sequence, dtype, residual: bool = False):
+    """K3's C entry bound to its arguments: ``(fn, args, out, keep)``, where
+    ``fn(*args)`` packs the weights (first launch) and runs the kernel into
+    ``out`` (x's shape); ``params`` is ``(ln_w, ln_b, w1, b1, w2, b2)`` as the
+    layer holds them. ``keep`` holds the tensors behind the pointers."""
+    if x.dtype != dtype:
+        raise TypeError(f"x is {x.dtype}, compute dtype {dtype}")
+    c, hidden = x.shape[-1], params[2].shape[0]
+    if not supports(c, hidden, dtype):
+        raise ValueError(f"ffn kernel: unsupported C={c} hidden={hidden} {dtype}")
+    prepared, wdtype = _weights([params], c, hidden, x.device)
+    x2d = x.reshape(-1, c).contiguous()
     out = torch.empty_like(x2d)
+    nbytes = kernels.bind("ffn", "ffn_packed_bytes", ctypes.c_int, ctypes.c_int)(c, hidden)
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     fn = kernels.bind(
         "ffn", "ffn", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 8,
     )
-    err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden, int(residual),
-             *[t.data_ptr() for t in p], kernels.stream_ptr(x.device))
-    kernels.check(err, "ffn")
+    args = (x2d.data_ptr(), out.data_ptr(), x2d.shape[0], c, hidden, int(residual),
+            int(wdtype == torch.bfloat16), *[t.data_ptr() for t in prepared],
+            packed.data_ptr(), kernels.stream_ptr(x.device))
+    return fn, args, out.view(x.shape), (x2d, prepared, packed)
+
+
+def _launch_ffn(x, params, dtype, residual):
+    fn, args, out, _ = ffn_call(x, params, dtype, residual)
+    kernels.check(fn(*args), "ffn")
     ffn.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 ffn.launches = 0
@@ -135,20 +150,7 @@ def pair_call(x, params1: Sequence, params2: Sequence, dtype):
     c, hidden = x.shape[-1], params1[2].shape[0]
     if not pair_supports(c, hidden, dtype):
         raise ValueError(f"ffn_pair kernel: unsupported C={c} hidden={hidden} {dtype}")
-    weights = [t for p in (params1, params2) for t in p[2:]]
-    wdtype = weights[0].dtype
-    if wdtype not in (torch.float32, torch.bfloat16) or any(t.dtype != wdtype for t in weights):
-        wdtype = torch.float32
-    prepared = []
-    for p in (params1, params2):
-        ln_w, ln_b, w1, b1, w2, b2 = p
-        if tuple(w1.shape) != (hidden, c) or tuple(w2.shape) != (c, hidden):
-            raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} do not match "
-                             f"C={c} hidden={hidden}")
-        prepared += [ln_w.float().contiguous(), ln_b.float().contiguous(),
-                     *[t.to(wdtype).contiguous() for t in (w1, b1, w2, b2)]]
-    if any(not t.is_cuda or t.device != x.device for t in prepared):
-        raise ValueError("ffn parameters must be on the input's CUDA device")
+    prepared, wdtype = _weights([params1, params2], c, hidden, x.device)
     x2d = x.reshape(-1, c).contiguous()
     out = torch.empty_like(x2d)
     nbytes = kernels.bind("ffn", "ffn_pair_packed_bytes", ctypes.c_int)(hidden)

@@ -14,6 +14,8 @@ recomputes through the plain version (``norm_pallas.py:98-114``).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +26,9 @@ from .recompute import recompute
 
 _THREADS = 256  # csrc/instance_norm.cu: threads per block
 _SMS = 132  # H100 SXM streaming multiprocessors
+SLAB_BYTES = 110_592  # csrc/instance_norm.cu MAX_SLAB: x a CTA holds on chip (two an SM)
+GROUP = 64  # csrc/instance_norm.cu CG: channels of an on-chip slab
+MAX_CLUSTER = 8  # CTAs of a (portable) thread-block cluster
 
 
 def reference_instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -49,37 +54,84 @@ def supports(x: torch.Tensor) -> bool:
     return x.dtype == torch.bfloat16 and x.ndim == 5 and c % 8 == 0 and _THREADS % (c // 8) == 0
 
 
-def num_splits(batch: int, spatial: int, channels: int) -> int:
-    """Splits of the spatial axis in the statistics pass: about four blocks
-    per SM over the whole call, each split at least four of a block's row
-    iterations (so the deep 6x6x12 calls stay few blocks and the 96^3 calls
-    fill the card)."""
+class Plan(NamedTuple):
+    """How ``csrc/instance_norm.cu`` takes a (B, S, C) call. ``onchip``: a
+    cluster of ``cluster`` CTAs holds one sample's ``GROUP`` channels, each
+    CTA ``rows`` rows of them, in shared memory (one launch, x read once).
+    Otherwise ``splits`` statistics blocks per sample, then the normalize
+    pass over the same rows (two launches)."""
+
+    onchip: bool
+    cluster: int = 0
+    rows: int = 0
+    splits: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, spatial: int, channels: int) -> Plan:
+    """The regime of a call. On chip where one sample's slab of 64 channels
+    (each row piece a whole 128-byte line) fits a cluster of at most 8 CTAs
+    of ``SLAB_BYTES``: every site of 12x12x24 and below. The cluster then
+    takes as many CTAs as give about two an SM over the call, each at least
+    32 rows. (Slabs of 16 channels would put 24x24x48 on chip too, but their
+    32-byte row pieces ran at half the speed of the two passes on the
+    card.) Otherwise the two passes, the statistics pass split in about two
+    blocks an SM over the call, each at least four of a block's row steps."""
+    need = -(-spatial * GROUP * 2 // SLAB_BYTES)
+    if channels % GROUP == 0 and need <= MAX_CLUSTER:
+        want = -(-2 * _SMS // (batch * (channels // GROUP)))
+        k = max(need, min(MAX_CLUSTER, want, -(-spatial // 32)))
+        return Plan(True, cluster=k, rows=-(-spatial // k))
     rows_per_iter = _THREADS // (channels // 8)
     by_work = max(1, spatial // (4 * rows_per_iter))
-    return max(1, min(by_work, -(-4 * _SMS // batch)))
+    return Plan(False, splits=max(1, min(by_work, -(-2 * _SMS // batch))))
+
+
+_WORK: Dict[torch.device, torch.Tensor] = {}
+
+
+def _workspace(device: torch.device, floats: int) -> torch.Tensor:
+    """The two-pass form's partial sums: one buffer per device, grown when a
+    call needs more (every launch is on the one current stream, which orders
+    its reuse)."""
+    buf = _WORK.get(device)
+    if buf is None or buf.numel() < floats:
+        buf = _WORK[device] = torch.empty(floats, dtype=torch.float32, device=device)
+    return buf
+
+
+def norm_call(x: torch.Tensor, eps: float = 1e-5, negative_slope=None):
+    """K8's C entry bound to its arguments: ``(fn, args, out, plan)``, where
+    ``fn(*args)`` normalizes ``x`` (B, X, Y, Z, C), contiguous, into ``out``
+    [+ LeakyReLU when ``negative_slope`` is given]."""
+    if not supports(x) or not x.is_contiguous():
+        raise ValueError(f"instance_norm kernel: unsupported {x.dtype} {tuple(x.shape)} "
+                         f"(contiguous: {x.is_contiguous()})")
+    B, C = x.shape[0], x.shape[-1]
+    S = x.shape[1] * x.shape[2] * x.shape[3]
+    p = plan(B, S, C)
+    work = 0 if p.onchip else _workspace(x.device, B * p.splits * 2 * C).data_ptr()
+    out = torch.empty_like(x)
+    act = negative_slope is not None
+    args = (x.data_ptr(), out.data_ptr(), work, B, S, C, p.cluster, p.rows, p.splits, eps,
+            int(act), float(negative_slope) if act else 0.0, kernels.stream_ptr(x.device))
+    return _entry(), args, out, p
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    return kernels.bind(
+        "instance_norm", "instance_norm", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
 def _launch(x: torch.Tensor, eps: float, negative_slope) -> torch.Tensor:
-    """K8 on a CUDA tensor: statistics (split reduction into a workspace),
-    fixed-order combine, normalize [+ LeakyReLU]."""
-    if not supports(x):
-        raise ValueError(f"instance_norm kernel: unsupported {x.dtype} {tuple(x.shape)}")
+    """K8 on a CUDA tensor, by ``plan``: one launch on chip, or statistics
+    then normalize."""
     x = x.contiguous()
-    B, C = x.shape[0], x.shape[-1]
-    S = x.shape[1] * x.shape[2] * x.shape[3]
-    splits = num_splits(B, S, C)
-    # partial sums (B, splits, 2, C), then mean and rstd (B, 2, C)
-    work = torch.empty(B * splits * 2 * C + B * 2 * C, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    fn = kernels.bind(
-        "instance_norm", "instance_norm", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    )
-    act = negative_slope is not None
-    err = fn(x.data_ptr(), out.data_ptr(), work.data_ptr(), B, S, C, splits, eps, int(act),
-             float(negative_slope) if act else 0.0, kernels.stream_ptr(x.device))
-    kernels.check(err, "instance_norm")
+    fn, args, out, _ = norm_call(x, eps, negative_slope)
+    kernels.check(fn(*args), "instance_norm")
     instance_norm.launches += 1
     return out
 

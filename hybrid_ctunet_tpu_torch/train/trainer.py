@@ -123,11 +123,22 @@ def _dice_of_logits(native_logits: np.ndarray, label: np.ndarray, n_classes: int
     return per_organ_dice(np.argmax(native_logits, axis=-1), label, n_classes=n_classes)
 
 
-def val_epoch(engine: SlidingWindowEngine, val_cases: Sequence[ValCase], cfg: TrainConfig, *,
-              dual_output: bool, device) -> Tuple[float, ...]:
+def val_epoch(model: torch.nn.Module, engine: SlidingWindowEngine, val_cases: Sequence[ValCase],
+              cfg: TrainConfig, *, dual_output: bool, device) -> Tuple[float, ...]:
     """Whole-volume validation: (acc_hybrid, acc_res, acc_vit) for CTUNet,
     else (acc,); each the mean over cases of the mean per-organ Dice
-    (reference val_epoch / val_epoch_hybrid)."""
+    (reference val_epoch / val_epoch_hybrid). ``engine`` runs ``model``,
+    which is put in eval mode for the pass and left in the mode it had."""
+    was_training = model.training
+    model.eval()
+    try:
+        return _val_accuracies(engine, val_cases, cfg, dual_output=dual_output, device=device)
+    finally:
+        model.train(was_training)
+
+
+def _val_accuracies(engine: SlidingWindowEngine, val_cases: Sequence[ValCase], cfg: TrainConfig,
+                    *, dual_output: bool, device) -> Tuple[float, ...]:
     accs: List[List[float]] = [[] for _ in range(3 if dual_output else 1)]
     for case in val_cases:
         img = np.asarray(case.image, np.float32)
@@ -169,6 +180,7 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
         for epoch in range(start_epoch, cfg.max_epochs):
             train_loader.set_epoch(epoch)
             lr = schedule(epoch)
+            model.train()
             t0 = time.time()
             train_loss = train_epoch(step_fn, train_loader, lr, epoch=epoch, device=device)
             print(f"Final training  {epoch}/{cfg.max_epochs - 1} loss: {train_loss:.4f} "
@@ -180,7 +192,7 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
                 save("latest.pt", epoch + 1, max(best.values()))
             if not val_cases:
                 continue
-            accs = val_epoch(engine, val_cases, cfg, dual_output=dual, device=device)
+            accs = val_epoch(model, engine, val_cases, cfg, dual_output=dual, device=device)
             if dual:
                 named = list(zip(("hybrid", "res", "vit"), accs,
                                  ("model_hybrid.pt", "model_res.pt", "model_vit.pt")))

@@ -100,6 +100,28 @@ def test_ffn(dev, c):
     _bf16_close(ffn.ffn(x, *p, BF), ffn.reference_ffn(x, *p, BF))
 
 
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("rows,hidden,wdtype,residual", [
+    (1, None, torch.float32, True),                    # one row of one tile
+    (63, None, torch.bfloat16, False),                 # less than one warpgroup's 64 rows
+    (129, None, torch.float32, False),                 # one row into a second tile
+    (1000, None, torch.bfloat16, True),                # a ragged last tile
+    (2 * 132 * 128 + 37, None, torch.float32, True),   # more tiles than a 132-SM grid holds
+    (300, 64, torch.float32, True)])                   # one hidden chunk
+def test_ffn_tilings(dev, c, rows, hidden, wdtype, residual):
+    """K3's persistent grid at its edges, weights fp32 (as the layer holds
+    them) or bf16, against the plain version and against itself on a rerun,
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = _randn(gen, rows, c, dtype=BF, dev=dev)
+    ln_w, ln_b, *w = _ffn_params(gen, c, hidden or 4 * c, dev)
+    p = (ln_w, ln_b, *(t.to(wdtype) for t in w))
+    got = ffn.ffn(x, *p, BF, residual=residual)
+    want = ffn.reference_ffn(x, *p, BF)
+    _bf16_close(got, x + want if residual else want)
+    assert torch.equal(got, ffn.ffn(x, *p, BF, residual=residual))
+
+
 def test_ffn_pair(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     x = _randn(gen, 2, 9, 11, 128, dtype=BF, dev=dev)
@@ -209,8 +231,8 @@ def test_instance_norm(dev, shape, act):
     gen = torch.Generator(device=dev).manual_seed(7)
     x = (3.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
     S = shape[1] * shape[2] * shape[3]
-    splits = norm.num_splits(shape[0], S, shape[-1])
-    assert splits >= 1
+    p = norm.plan(shape[0], S, shape[-1])
+    assert p.cluster >= 1 if p.onchip else p.splits >= 1
     got = norm.instance_norm_leaky(x) if act else norm.instance_norm(x)
     want = norm.reference_instance_norm(x)
     if act:
@@ -218,6 +240,35 @@ def test_instance_norm(dev, shape, act):
     _bf16_close(got, want)
     again = norm.instance_norm_leaky(x) if act else norm.instance_norm(x)
     assert torch.equal(got, again)  # fixed summation order: reproducible
+
+
+@pytest.mark.parametrize("shape,onchip,cluster", [
+    ((1, 1, 1, 31, 64), True, 1),         # fewer than 32 rows: one CTA
+    ((1, 3, 5, 7, 64), True, 4),          # S 105, odd: four CTAs of 27 rows
+    ((4, 6, 6, 12, 1024), True, 5),       # the deepest site: a cluster of 5
+    ((1, 7, 17, 29, 128), True, 8),       # S 3451, odd
+    ((4, 1, 1, 3455, 2048), True, 4),     # the widest C
+    ((1, 1, 1, 6912, 64), True, 8),       # slabs that fill 8 CTAs exactly
+    ((1, 1, 1, 6913, 64), False, 0),      # one row more: two passes
+    ((1, 1, 1, 6912, 2048), True, 8),     # the same at the widest C
+    ((1, 1, 1, 6913, 2048), False, 0),
+    ((1, 3, 5, 7, 32), False, 0),         # fewer than 64 channels: two passes
+    ((1, 23, 17, 29, 32), False, 0),      # S 11339, odd
+    ((2, 40, 40, 37, 128), False, 0)])
+@pytest.mark.parametrize("act", [False, True])
+def test_instance_norm_regimes(dev, shape, onchip, cluster, act):
+    """K8 on each regime of ``norm.plan`` and at the cluster's edges, against
+    the plain version and against itself on a rerun, bit for bit."""
+    B, S, C = shape[0], shape[1] * shape[2] * shape[3], shape[-1]
+    p = norm.plan(B, S, C)
+    assert (p.onchip, p.cluster) == (onchip, cluster)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = (3.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    run = norm.instance_norm_leaky if act else norm.instance_norm
+    got = run(x)
+    want = norm.reference_instance_norm(x)
+    _bf16_close(got, torch.nn.functional.leaky_relu(want, 0.01) if act else want)
+    assert torch.equal(got, run(x))
 
 
 def test_wrappers_raise_on_unsupported(dev):

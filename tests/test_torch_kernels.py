@@ -22,7 +22,7 @@ from hybrid_ctunet_tpu.infer.sliding_window import dense_patch_starts, get_scan_
 from hybrid_ctunet_tpu.models import layers as j_layers
 from hybrid_ctunet_tpu.ops import attention_pallas, ffn_pallas, scatter_pallas, shuffle_pallas
 from hybrid_ctunet_tpu_torch.models import layers
-from hybrid_ctunet_tpu_torch.ops import attention, ffn, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, scatter, shuffle
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 from hybrid_ctunet_tpu_torch.utils.params import _Out
 
@@ -223,9 +223,39 @@ def test_pair_and_transp_gates_take_the_main_path_sites():
     assert not shuffle.transp_supports((1, 2, 2, 2, 128), (128, 4, 2, 2, 2), bf)  # Cout % 8
 
 
+# every conv-path InstanceNorm site (X, Y, Z, C) of a CTUNet res-only chunk,
+# a TUNet chunk and a CTUNet train step (recorded from forwards of the
+# full-width models on the meta device)
+NORM_CENSUS = [(96, 96, 96, 64), (48, 48, 96, 128), (48, 48, 96, 64), (48, 48, 96, 32),
+               (24, 24, 48, 256), (24, 24, 48, 128), (24, 24, 48, 64), (12, 12, 24, 512),
+               (12, 12, 24, 256), (12, 12, 24, 128), (6, 6, 12, 1024), (6, 6, 12, 256)]
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_norm_plan_takes_every_census_site(batch):
+    """K8's plan gives every site a regime the C entry accepts, and the
+    one-launch on-chip regime wherever one sample's slab of 64 channels (a
+    whole 128-byte line a row) fits a cluster of 8 CTAs: every site up to
+    12x12x24."""
+    onchip = []
+    for *space, c in NORM_CENSUS:
+        s = int(np.prod(space))
+        p = norm.plan(batch, s, c)
+        fits = c % norm.GROUP == 0 and s * norm.GROUP * 2 <= norm.MAX_CLUSTER * norm.SLAB_BYTES
+        assert p.onchip == fits, (space, c)
+        if p.onchip:
+            assert 1 <= p.cluster <= norm.MAX_CLUSTER and p.splits == 0
+            assert p.rows * p.cluster >= s > p.rows * (p.cluster - 1)
+            assert p.rows * norm.GROUP * 2 <= norm.SLAB_BYTES
+            onchip.append(tuple(space))
+        else:
+            assert 1 <= p.splits <= 65535 and p.cluster == 0
+    assert sorted(set(onchip)) == [(6, 6, 12), (12, 12, 24)]
+
+
 def test_gelu_table_range_holds_every_other_value_exactly():
     """K4 reads bf16(gelu(h)) for a bf16 h from a table when |h| lies in
-    [2^-10, 8) (csrc/ffn.cu, pair::LUT_E0 and LUT_HALF) and computes it
+    [2^-10, 8) (csrc/ffn.cu, ffnk::LUT_E0 and LUT_HALF) and computes it
     otherwise as bf16(h / 2) below, h or -0 above (the formula times 2 or
     0). Those reductions must equal the fp32 erf formula for every bf16
     value outside the table."""

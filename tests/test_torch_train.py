@@ -241,6 +241,58 @@ def test_grad_accum_is_exact():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
+class _OneBatch:
+    """A train loader of one (image, label) batch, as ``TrainLoader`` yields."""
+
+    def __init__(self, image, label):
+        self.batch = (image, label)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return 1
+
+    def __iter__(self):
+        return iter([self.batch])
+
+
+def test_train_step_in_train_mode_and_validation_in_eval_mode(tmp_path):
+    """ROADMAP C7: ``run_training`` runs its train steps in train mode and
+    ``val_epoch`` in eval mode, leaving the model in the mode it found. A
+    forward hook on every module of the TINY TUNet records its ``training``
+    flag in each pass; validation is the pass under inference mode."""
+    from hybrid_ctunet_tpu_torch.data.transforms import preprocess_case
+    from hybrid_ctunet_tpu_torch.train import trainer
+
+    rng = np.random.default_rng(7)
+    image = rng.uniform(-175, 250, (32, 32, 32)).astype(np.float32)
+    label = rng.integers(0, 3, (32, 32, 32)).astype(np.int32)
+    img, lab, meta = preprocess_case(image, np.diag([1.5, 1.5, 2.0, 1.0]), label,
+                                     resample_labels=False)
+    case = trainer.ValCase(image=img, label=lab, meta=meta)
+    torch.manual_seed(0)
+    model = TUNet(**TINY).eval()  # the wrong mode for training: run_training must set it
+    seen = {True: set(), False: set()}  # inference mode -> training flags seen
+    for m in model.modules():
+        m.register_forward_hook(
+            lambda m, i, o: seen[torch.is_inference_mode_enabled()].add(m.training))
+    cfg = trainer.TrainConfig(model_name="tunet", max_epochs=1, warmup_epochs=0, val_every=1,
+                              lrschedule="constant", roi_size=(32, 32, 32), sw_batch_size=1,
+                              infer_overlap=0.0, logdir=str(tmp_path), out_channels=3,
+                              save_checkpoint=False)
+    step = steps.make_train_step("tunet", model, state.make_optimizer(model.parameters(), "adamw"))
+    batch = _OneBatch(rng.standard_normal((1, 32, 32, 32, 1)).astype(np.float32),
+                      rng.integers(0, 3, (1, 32, 32, 32, 1)).astype(np.int32))
+    trainer.run_training(model, None, step, batch, [case], cfg, device="cpu")
+    assert seen == {False: {True}, True: {False}}
+    assert model.training  # validation restored the train mode it found
+    engine = trainer.make_val_engine(model, cfg, dual_output=False)
+    model.eval()
+    trainer.val_epoch(model, engine, [case], cfg, dual_output=False, device="cpu")
+    assert not model.training
+
+
 def test_checkpoint_round_trip(tmp_path):
     """The reference's dict; weights and optimizer state load back."""
     model = CUNet(out_channels=3, model_depth=50)
