@@ -15,11 +15,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version and, where one PyTorch call computes the same function,
    that call (median of 5 runs of 10 back-to-back calls); and each
    kernel's bound, the least time an H100 could take for the same bytes and
-   operations. K2 is also logged per pyramid stage against SDPA, K6 per
-   decoder site against cuDNN, K8 per InstanceNorm site (its regime, the C
-   entry alone, F.instance_norm, a rerun bit for bit) with a CTUNet-chunk
-   and a TUNet-chunk total, K9 per call against cuDNN with its fused entry
-   beside it; K3, K4, K6 and K8 also as the C entry alone.
+   operations. K2 is also logged per pyramid stage against SDPA, K5 per
+   pyramid site and K7 per width (the C entry alone, a rerun bit for bit;
+   K7's weight packing against its plain layout), K6 per decoder site
+   against cuDNN, K8 per InstanceNorm site (its regime, the C entry alone,
+   F.instance_norm, a rerun bit for bit) with a CTUNet-chunk and a
+   TUNet-chunk total, K9 per call against cuDNN with its fused entry beside
+   it; K3-K8 also as the C entry alone.
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
@@ -337,8 +339,11 @@ def phase_kernels(device):
     del x, got, want, keep
 
     # K5: the four pyramid shuffles, 1 call each per chunk (TUNet; CTUNet's
-    # res-only path runs the first three)
+    # res-only path runs the first three), w and b fp32 as the layer holds
+    # them; per site the wrapper, the C entry alone (``shuffle.shuffle_call``),
+    # the plain version, the bound and a rerun bit for bit
     t = Tally(library=False)
+    sites, alone_sum = [], 0.0
     for shape, factor, Fo in (((CHUNK, 6, 6, 12, 768), (2, 2, 2), 512),
                               ((CHUNK, 12, 12, 24, 512), (2, 2, 2), 256),
                               ((CHUNK, 24, 24, 48, 256), (2, 2, 2), 128),
@@ -349,11 +354,22 @@ def phase_kernels(device):
         got = shuffle.pixel_shuffle_linear(x, w, b, factor, bf)
         want = shuffle.reference_shuffle(x, w, b, factor, bf)
         err = check_bf16(f"pixel_shuffle_linear {shape} {factor} -> {Fo}", got, want)
+        if not torch.equal(got, shuffle.pixel_shuffle_linear(x, w, b, factor, bf)):
+            raise AssertionError(f"pixel_shuffle_linear {shape}: a rerun is not bit-identical")
         ms = cuda_time_ms(lambda: shuffle.pixel_shuffle_linear(x, w, b, factor, bf))
+        fn, args, _, keep = shuffle.shuffle_call(x, w, b, factor, bf)
+        alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
         plain = cuda_time_ms(lambda: shuffle.reference_shuffle(x, w, b, factor, bf))
-        log(f"  pixel_shuffle_linear {shape}: {ms!r} ms, plain {plain!r} ms")
-        t.add(err, 1, ms, plain, nbytes(x, got) + (Fo * cp + Fo) * 2, 2 * got.numel() * cp)
-    results["pixel_shuffle_linear"] = t.row()
+        log(f"  pixel_shuffle_linear {shape} (rerun bit-identical): {ms!r} ms, kernel alone "
+            f"{alone!r} ms, plain {plain!r} ms")
+        site = Tally(library=False)
+        for tally in (t, site):
+            tally.add(err, 1, ms, plain, nbytes(x, w, b, got), 2 * got.numel() * cp)
+        sites.append({"x": list(shape), "factor": list(factor), "features": Fo, **site.row(),
+                      "kernel_alone_ms": alone})
+        alone_sum += alone
+        del keep
+    results["pixel_shuffle_linear"] = {**t.row(), "kernel_alone_ms": alone_sum, "sites": sites}
     del x, got, want
 
     # K6: the four decoder upsamples of CTUNet/CUNet, 1 call each per chunk,
@@ -389,8 +405,13 @@ def phase_kernels(device):
     results["transp_conv_kxs"] = {**t.row(), "kernel_alone_ms": alone_sum, "sites": sites}
     del x, got, want
 
-    # K7: the two fusions of each Up2FusionBlock, 2 calls per width per chunk
+    # K7: the two fusions of each Up2FusionBlock, 2 calls per width per chunk,
+    # the parameters fp32 as the layer holds them; per width the wrapper, the
+    # C entry alone (``pixelweight.pixelweight_call``), the plain version, the
+    # bound, a rerun bit for bit, and the entry's weight packing against its
+    # plain layout (``pixelweight.pack_weights``) bit for bit
     t = Tally(library=False)
+    sites, alone_sum = [], 0.0
     for shape in ((CHUNK, 12, 12, 24, 512), (CHUNK, 24, 24, 48, 256), (CHUNK, 48, 48, 96, 128)):
         C = shape[-1]
         x1, x2 = randn(*shape, dtype=bf), randn(*shape, dtype=bf)
@@ -400,13 +421,26 @@ def phase_kernels(device):
         got = pixelweight.pixelweight(x1, x2, p, bf)
         want = pixelweight.reference_pixelweight(x1, x2, p, bf)
         err = check_bf16(f"pixelweight {shape}", got, want)
+        if not torch.equal(got, pixelweight.pixelweight(x1, x2, p, bf)):
+            raise AssertionError(f"pixelweight {shape}: a rerun is not bit-identical")
+        packed = pixelweight.device_pack(*p[4:]).cpu().view(torch.int16)
+        if not torch.equal(packed, pixelweight.pack_weights(*[w.cpu() for w in p[4:]]).view(
+                torch.int16)):
+            raise AssertionError(f"pixelweight C {C}: the packing launch differs from pack_weights")
         ms = cuda_time_ms(lambda: pixelweight.pixelweight(x1, x2, p, bf))
+        fn, args, _, keep = pixelweight.pixelweight_call(x1, x2, p, bf)
+        alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
         plain = cuda_time_ms(lambda: pixelweight.reference_pixelweight(x1, x2, p, bf))
-        log(f"  pixelweight {shape}: {ms!r} ms, plain {plain!r} ms")
+        log(f"  pixelweight {shape} (rerun bit-identical, packing = pack_weights): {ms!r} ms, "
+            f"kernel alone {alone!r} ms, plain {plain!r} ms per call")
         rows = x1.numel() // C
-        t.add(err, 2, ms, plain, nbytes(x1, x2, got) + 7 * C * C * 2 + 4 * C * 4,
-              14 * rows * C * C)
-    results["pixelweight"] = t.row()
+        site = Tally(library=False)
+        for tally in (t, site):
+            tally.add(err, 2, ms, plain, nbytes(x1, x2, got, *p), 14 * rows * C * C)
+        sites.append({"x": list(shape), "calls": 2, **site.row(), "kernel_alone_ms": 2 * alone})
+        alone_sum += 2 * alone
+        del keep
+    results["pixelweight"] = {**t.row(), "kernel_alone_ms": alone_sum, "sites": sites}
     del x1, x2, got, want
 
     results["instance_norm"] = norm_rows(randn, nbytes)

@@ -77,28 +77,100 @@ def pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_HEAD):
         x1, x2, *params)
 
 
-def _launch(x1, x2, params, dtype):
+def _swizzle(t):
+    """(..., R, 64) -> the 128-byte swizzle of csrc/sm90.cuh: the 16-byte
+    chunk c of row r stored at chunk c ^ (r % 8)."""
+    R = t.shape[-2]
+    chunks = t.reshape(*t.shape[:-1], 8, 8)
+    idx = torch.arange(8)[None, :] ^ (torch.arange(R) % 8)[:, None]
+    return chunks[..., torch.arange(R)[:, None], idx, :].reshape(t.shape)
+
+
+def pack_weights(wqkv1, wqkv2, wout):
+    """Plain version of the C entry's packing launch: the three projections
+    as the 1-D bf16 image the kernel streams. Per head pair, per head: one
+    entry per 64-wide K block with the head's q, k and v rows of stream 1
+    (96 x 64), then stream 2's the same way, or at C >= 256 its q|k rows
+    (64 x 64) and then its v rows (32 x 64) in entries of their own; then
+    W_out's 64 columns of the pair in 128-row entries. Every entry K-major
+    and swizzled."""
+    C = wout.shape[0]
+    H, KB = C // DIM_HEAD, C // 64
+
+    def per_head(w):  # (3C, C) -> (H, KB, 96, 64)
+        w = w.to(torch.bfloat16).reshape(3, H, DIM_HEAD, KB, 64)
+        return w.permute(1, 3, 0, 2, 4).reshape(H, KB, 3 * DIM_HEAD, 64)
+
+    s1, s2 = per_head(wqkv1), per_head(wqkv2)
+    parts = [s1, s2] if C < 256 else [s1, s2[:, :, :64], s2[:, :, 64:]]
+    qkv = torch.cat([_swizzle(t).reshape(H, -1) for t in parts], 1).reshape(H // 2, -1)
+    o = wout.to(torch.bfloat16).reshape(C // 128, 128, H // 2, 64).permute(2, 0, 1, 3)
+    o = _swizzle(o).reshape(H // 2, -1)
+    return torch.cat([qkv, o], 1).reshape(-1)
+
+
+def _weights(params, device):
+    """LN params fp32; the projections as the caller holds them, fp32 or
+    bf16 (fp32 where they are mixed or another type): the C entry's packing
+    launch reads them, so no torch op runs on parameters already so."""
+    ln = [t.float().contiguous() for t in params[:4]]
+    w = params[4:]
+    wdtype = w[0].dtype
+    if wdtype not in (torch.float32, torch.bfloat16) or any(t.dtype != wdtype for t in w):
+        wdtype = torch.float32
+    w = [t.to(wdtype).contiguous() for t in w]
+    if any(not t.is_cuda or t.device != device for t in ln + w):
+        raise ValueError("pixelweight parameters must be on the input's CUDA device")
+    return ln, w, wdtype
+
+
+def pixelweight_call(x1, x2, params, dtype):
+    """K7's C entry bound to its arguments: ``(fn, args, out, keep)``, where
+    ``fn(*args)`` packs the projections (first launch) and runs the kernel
+    into ``out`` (x1's shape); ``params`` as the layer holds them. ``keep``
+    holds the tensors behind the pointers."""
     C = x1.shape[-1]
-    ln1w, ln1b, ln2w, ln2b, wqkv1, wqkv2, wout = params
-    if tuple(wqkv1.shape) != (3 * C, C) or tuple(wqkv2.shape) != (3 * C, C) \
-            or tuple(wout.shape) != (C, C):
+    if tuple(params[4].shape) != (3 * C, C) or tuple(params[5].shape) != (3 * C, C) \
+            or tuple(params[6].shape) != (C, C):
         raise ValueError("pixelweight weights must be (3C, C), (3C, C), (C, C)")
     a = x1.reshape(-1, C).contiguous()
     b = x2.reshape(-1, C).contiguous()
-    ps = [t.float().contiguous() for t in (ln1w, ln1b, ln2w, ln2b)]
-    ps += [t.to(dtype).contiguous() for t in (wqkv1, wqkv2, wout)]
-    if any(not t.is_cuda or t.device != x1.device for t in ps):
-        raise ValueError("pixelweight parameters must be on the input's CUDA device")
+    ln, w, wdtype = _weights(params, x1.device)
+    nbytes = kernels.bind("pixelweight", "pixelweight_packed_bytes", ctypes.c_int)(C)
+    packed = torch.empty(nbytes, dtype=torch.uint8, device=x1.device)
     out = torch.empty_like(a)
     fn = kernels.bind(
         "pixelweight", "pixelweight", *[ctypes.c_void_p] * 3, ctypes.c_longlong, ctypes.c_int,
-        *[ctypes.c_void_p] * 8,
+        *[ctypes.c_void_p] * 7, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     )
-    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], C,
-             *[t.data_ptr() for t in ps], kernels.stream_ptr(x1.device))
-    kernels.check(err, "pixelweight")
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], C,
+            *[t.data_ptr() for t in ln + w], int(wdtype == torch.bfloat16), packed.data_ptr(),
+            kernels.stream_ptr(x1.device))
+    return fn, args, out.view(x1.shape), (a, b, ln, w, packed)
+
+
+def device_pack(wqkv1, wqkv2, wout):
+    """The C entry's packing launch alone, on the card: the bf16 image that
+    ``pack_weights`` computes in plain torch."""
+    C = wout.shape[0]
+    ws = [t.contiguous() for t in (wqkv1, wqkv2, wout)]
+    if any(t.dtype != ws[0].dtype for t in ws) or ws[0].dtype not in (torch.float32,
+                                                                       torch.bfloat16):
+        raise TypeError("device_pack takes three fp32 or three bf16 weights")
+    packed = torch.empty(7 * C * C, dtype=torch.bfloat16, device=wout.device)
+    fn = kernels.bind("pixelweight", "pixelweight_pack", ctypes.c_int, *[ctypes.c_void_p] * 3,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+    err = fn(C, *[t.data_ptr() for t in ws], int(ws[0].dtype == torch.bfloat16),
+             packed.data_ptr(), kernels.stream_ptr(wout.device))
+    kernels.check(err, "pixelweight_pack")
+    return packed
+
+
+def _launch(x1, x2, params, dtype):
+    fn, args, out, _ = pixelweight_call(x1, x2, params, dtype)
+    kernels.check(fn(*args), "pixelweight")
     pixelweight.launches += 1
-    return out.reshape(x1.shape)
+    return out
 
 
 pixelweight.launches = 0

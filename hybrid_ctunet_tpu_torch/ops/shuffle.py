@@ -23,8 +23,7 @@ import torch
 from .. import kernels
 from .recompute import recompute
 
-_BM = 64  # csrc/pixel_shuffle.cu: GEMM rows per block
-_BN = 64  # output features per block
+_NBLK = 64  # csrc/pixel_shuffle.cu: output features a pass
 _T_BN = 128  # csrc/transp_conv.cu: GEMM columns (k0 k1 k2 Cout) per tile
 _T_BK = 64  # input channels per stage
 
@@ -40,13 +39,16 @@ def reference_shuffle(x, w, b, factor: Tuple[int, int, int], dtype):
 
 
 def supports(c: int, factor: Tuple[int, int, int], features: int, dtype) -> bool:
+    """Where K5 engages: bf16, 4 or 8 sub-positions, C' of 32, 64 or 96 (the
+    kernel's instances) and F in passes of 64: every shuffle of the TUNet
+    and CTUNet pyramids."""
     div = factor[0] * factor[1] * factor[2]
     return (
         dtype == torch.bfloat16
-        and _BM % div == 0
+        and div in (4, 8)
         and c % div == 0
-        and (c // div) % 16 == 0
-        and features % _BN == 0
+        and c // div in (32, 64, 96)
+        and features % _NBLK == 0
     )
 
 
@@ -70,23 +72,35 @@ def pixel_shuffle_linear(x, w, b, factor: Tuple[int, int, int], dtype):
         x, w, b)
 
 
-def _launch_shuffle(x, w, b, factor, dtype):
+def shuffle_call(x, w, b, factor, dtype):
+    """K5's C entry bound to its arguments: ``(fn, args, out, keep)``, where
+    ``fn(*args)`` runs the kernel into ``out``. w and b go in as the caller
+    holds them, fp32 or bf16 (fp32 where they differ or are another type):
+    the kernel rounds them to bf16 as it stages them. ``keep`` holds the
+    tensors behind the pointers."""
     B, X, Y, Z, C = x.shape
-    f0, f1, f2 = factor
+    f0, f1, f2 = (int(f) for f in factor)
     F, cp = w.shape
     x = x.contiguous()
-    wk = w.to(dtype).contiguous()
-    bk = b.to(dtype).contiguous()
-    if not (wk.is_cuda and bk.is_cuda):
+    wdtype = w.dtype if w.dtype == b.dtype and w.dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+    wk, bk = w.to(wdtype).contiguous(), b.to(wdtype).contiguous()
+    if not (wk.is_cuda and bk.is_cuda) or wk.device != x.device or bk.device != x.device:
         raise ValueError("weights must be on the input's CUDA device")
     out = torch.empty((B, X * f0, Y * f1, Z * f2, F), dtype=dtype, device=x.device)
     fn = kernels.bind(
         "pixel_shuffle", "pixel_shuffle_linear",
-        *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 9, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 3, ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 9,
+        ctypes.c_void_p,
     )
-    err = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-             B, X, Y, Z, f0, f1, f2, cp, F, kernels.stream_ptr(x.device))
-    kernels.check(err, "pixel_shuffle_linear")
+    args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), int(wdtype == torch.bfloat16),
+            out.data_ptr(), B, X, Y, Z, f0, f1, f2, cp, F, kernels.stream_ptr(x.device))
+    return fn, args, out, (x, wk, bk)
+
+
+def _launch_shuffle(x, w, b, factor, dtype):
+    fn, args, out, _ = shuffle_call(x, w, b, factor, dtype)
+    kernels.check(fn(*args), "pixel_shuffle_linear")
     pixel_shuffle_linear.launches += 1
     return out
 

@@ -171,14 +171,24 @@ def test_ffn_pair_raises_on_other_widths(dev):
         ffn.ffn_pair(x, p, p, BF)  # C 256 runs as two ffn calls, not the pair
 
 
-@pytest.mark.parametrize("factor,c,f", [((2, 2, 2), 256, 128), ((2, 2, 1), 128, 64)])
-def test_pixel_shuffle(dev, factor, c, f):
+@pytest.mark.parametrize("c,factor,f", [(768, (2, 2, 2), 512), (512, (2, 2, 2), 256),
+                                        (256, (2, 2, 2), 128), (128, (2, 2, 1), 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7),    # 210 voxels
+                                   (1, 3, 5, 7),    # 105 and 330: not a multiple of
+                                   (2, 5, 3, 11)])  # the 8-voxel group
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_pixel_shuffle(dev, c, factor, f, shape, wdtype):
+    """K5 at each pyramid site's channels, factor and features, at reduced
+    size, w and b fp32 (as the layer holds them) or bf16; a rerun is
+    bit-identical."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    x = _randn(gen, 2, 3, 5, 7, c, dtype=BF, dev=dev)
+    x = _randn(gen, *shape, c, dtype=BF, dev=dev)
     cp = c // int(np.prod(factor))
-    w, b = _randn(gen, f, cp, std=cp ** -0.5, dev=dev), _randn(gen, f, std=0.1, dev=dev)
-    _bf16_close(shuffle.pixel_shuffle_linear(x, w, b, factor, BF),
-                shuffle.reference_shuffle(x, w, b, factor, BF))
+    w = _randn(gen, f, cp, std=cp ** -0.5, dev=dev).to(wdtype)
+    b = _randn(gen, f, std=0.1, dev=dev).to(wdtype)
+    got = shuffle.pixel_shuffle_linear(x, w, b, factor, BF)
+    _bf16_close(got, shuffle.reference_shuffle(x, w, b, factor, BF))
+    assert torch.equal(got, shuffle.pixel_shuffle_linear(x, w, b, factor, BF))
 
 
 @pytest.mark.parametrize("shape,k", [((2, 3, 5, 7, 256), (2, 2, 2)),
@@ -210,16 +220,49 @@ def test_transp_conv_site_geometries(dev, cin, cout, k, shape, wdtype):
     assert torch.equal(got, shuffle.transp_conv_kxs(x, w, BF))
 
 
-@pytest.mark.parametrize("c,n", [(128, 1000), (256, 200), (512, 77)])  # ragged last tiles
-def test_pixelweight(dev, c, n):
+def _pixelweight_params(gen, c, dev, wdtype=torch.float32):
+    return [1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
+            1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
+            *[_randn(gen, *s, std=c ** -0.5, dev=dev).to(wdtype)
+              for s in ((3 * c, c), (3 * c, c), (c, c))]]
+
+
+@pytest.mark.parametrize("c,rows", [(128, 1000), (256, 200), (512, 77),  # ragged last tiles
+                                    (128, 2 * 132 * 128 + 37),  # more 128-row tiles than CTAs
+                                    (256, 132 * 128 + 77),
+                                    (512, 2 * 132 * 64 + 5)])   # more 64-row tiles than CTAs
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_pixelweight(dev, c, rows, wdtype):
+    """K7 at each width, weights fp32 (as the layer holds them) or bf16; a
+    rerun is bit-identical."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    x1, x2 = (_randn(gen, n, c, dtype=BF, dev=dev) for _ in range(2))
-    p = [1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
-         1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
-         _randn(gen, 3 * c, c, std=c ** -0.5, dev=dev), _randn(gen, 3 * c, c, std=c ** -0.5, dev=dev),
-         _randn(gen, c, c, std=c ** -0.5, dev=dev)]
+    x1, x2 = (_randn(gen, rows, c, dtype=BF, dev=dev) for _ in range(2))
+    p = _pixelweight_params(gen, c, dev, wdtype)
+    got = pixelweight.pixelweight(x1, x2, p, BF)
+    _bf16_close(got, pixelweight.reference_pixelweight(x1, x2, p, BF))
+    assert torch.equal(got, pixelweight.pixelweight(x1, x2, p, BF))
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_pixelweight_offset_inputs(dev, c):
+    """Inputs with |mean| ~ 30 and unit spread: the LN's two-pass statistics."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x1 = _randn(gen, 300, c, dev=dev).add_(30.0).to(BF)
+    x2 = _randn(gen, 300, c, dev=dev).sub_(30.0).to(BF)
+    p = _pixelweight_params(gen, c, dev)
     _bf16_close(pixelweight.pixelweight(x1, x2, p, BF),
                 pixelweight.reference_pixelweight(x1, x2, p, BF))
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_pixelweight_packing_launch(dev, c, wdtype):
+    """The C entry's packing launch writes pack_weights' image, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    w = _pixelweight_params(gen, c, dev, wdtype)[4:]
+    got = pixelweight.device_pack(*w).cpu()
+    assert torch.equal(got.view(torch.int16),
+                       pixelweight.pack_weights(*[t.cpu() for t in w]).view(torch.int16))
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 7, 9, 64),      # S 315: two splits

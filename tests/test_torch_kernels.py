@@ -22,7 +22,7 @@ from hybrid_ctunet_tpu.infer.sliding_window import dense_patch_starts, get_scan_
 from hybrid_ctunet_tpu.models import layers as j_layers
 from hybrid_ctunet_tpu.ops import attention_pallas, ffn_pallas, scatter_pallas, shuffle_pallas
 from hybrid_ctunet_tpu_torch.models import layers
-from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, scatter, shuffle
+from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatter, shuffle
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 from hybrid_ctunet_tpu_torch.utils.params import _Out
 
@@ -269,3 +269,46 @@ def test_gelu_table_range_holds_every_other_value_exactly():
     rule = rule.to(torch.bfloat16)
     outside = (below | above) & torch.isfinite(h)
     assert torch.equal(rule[outside].view(torch.int16), formula[outside].view(torch.int16))
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_pixelweight_packing_unpacks_to_the_weights(c):
+    """K7's weight image (``pixelweight.pack_weights``, the plain version of
+    the C entry's packing launch) read back entry by entry, as the kernel
+    walks it, gives W_qkv1, W_qkv2 and W_out again: per head pair, per head
+    and stream one 96 x 64 entry per K block (q, k, v rows of the head; at
+    C 256 stream 2's q|k and v in 64- and 32-row entries), then 128 x 64
+    entries of W_out's pair columns; chunk c of row n stored at chunk
+    c ^ (n % 8)."""
+    rng = np.random.default_rng(31)
+    ws = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+          for s in ((3 * c, c), (3 * c, c), (c, c))]
+    packed = pixelweight.pack_weights(*ws).float().numpy()
+    assert packed.size == 7 * c * c
+    got = [np.full(tuple(w.shape), np.nan, np.float32) for w in ws]
+    pos = np.arange(8)[None, :]
+    off = 0
+    for p in range(c // 64):
+        for hh in range(2):
+            h = 2 * p + hh
+            # (stream, first row, rows) of each K block's entries, in order
+            parts = [(0, 0, 96), (1, 0, 96)] if c < 256 else [(0, 0, 96), (1, 0, 64), (1, 64, 32)]
+            for s, r0, nr in parts:
+                for kb in range(c // 64):
+                    e = packed[off:off + nr * 64].reshape(nr, 8, 8)
+                    off += nr * 64
+                    rows = r0 + np.arange(nr)[:, None]
+                    r = (rows // 32) * c + h * 32 + rows % 32
+                    cols = kb * 64 + (pos ^ (rows % 8)) * 8
+                    for k in range(8):
+                        got[s][r, cols + k] = e[:, :, k]
+        orows = np.arange(128)[:, None]
+        for nb in range(c // 128):
+            e = packed[off:off + 128 * 64].reshape(128, 8, 8)
+            off += 128 * 64
+            cols = 64 * p + (pos ^ (orows % 8)) * 8
+            for k in range(8):
+                got[2][nb * 128 + orows, cols + k] = e[:, :, k]
+    assert off == packed.size
+    for g, w in zip(got, ws):
+        np.testing.assert_array_equal(g, w.float().numpy())
