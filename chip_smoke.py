@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build every kernel of the path from ``hybrid_ctunet_tpu_torch/csrc`` with
    nvcc, all sources in parallel (seconds printed).
 3. Each kernel against its plain PyTorch version at the main path's shapes
-   (K1 scatter must be bit-exact; the bf16 kernels must meet the stated
-   tolerance), with CUDA-event times per 4-window chunk of the kernel, its
+   (K1 scatter must be bit-exact, at four chunk shapes: windows 4-7 of the
+   TUNet and of the CTUNet engine and each engine's trailing chunk; the bf16
+   kernels must meet the stated tolerance), with CUDA-event times per
+   4-window chunk of the kernel, its
    plain version and, where one PyTorch call computes the same function,
    that call (median of 5 runs of 10 back-to-back calls); and each
    kernel's bound, the least time an H100 could take for the same bytes and
@@ -27,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
    equal to the count the module tree implies; 2 timed volumes; one 4-window
    batch with every kernel call held to its plain version on the model's
-   activations, and the output against the same model on plain versions.
+   activations, and the output against the same model on plain versions;
+   the TUNet saved as a reference-format checkpoint for phase 7.
 5. The Hybrid-CTUNet ensemble: full-width CTUNet (ResNet-101, pf 8,
    174,109,542 params, res head only, overlap 0.5, 50 windows) and the
    TUNet, softmax-mean and argmax over the same volume; launch counts per
@@ -35,14 +38,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    one 4-window CTUNet batch checked as the TUNet one (every gate off for
    the plain run); one 4-window batch of full-width CUNet (50,779,754
    params).
-6. Training, this slice's main path (main_CTUNet.py): every kernel's
+6. Training (main_CTUNet.py): every kernel's
    autograd.Function against its plain path's backward at the training
    shapes; the full-width CTUNet trained on --synthetic data through the
    port's train step at batch 4 x 96^3 in bf16, one warm-up and 5 timed
    steps with launches per step equal to the module tree's and a finite
    loss, and one profiled step; then ``cli/train_main.py`` end to end (two
    epochs, a validation pass, the three best-metric checkpoints and
-   latest.pt, which must load back).
+   latest.pt, which must load back; the checkpoints are kept for phase 7).
+7. The eval CLI (``cli/test_main.py``), this slice's main path: one
+   synthetic validation case whose preprocessed grid is 256x256x128;
+   ``test_final`` (phase 6's trained CTUNet res head + phase 4's TUNet) at
+   full width, again with ``--postprocess``, and ``test_ctunet`` on phase
+   6's three checkpoints; launches per run equal to the module tree's times
+   the chunks, every engine's first and trailing K1 call bit-exact on the
+   eval's own canvas, finite Dice and HD95, the report's HD95 block, the
+   masks at the case's native shape; seconds per case on the device and on
+   the host.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -56,6 +68,7 @@ import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 # bf16 kernels against their plain versions: summation order inside the
@@ -205,10 +218,7 @@ def phase_kernels(device):
     import torch
     import torch.nn.functional as F
 
-    from hybrid_ctunet_tpu_torch.cli import bench
-    from hybrid_ctunet_tpu_torch.infer.sliding_window import SlidingWindowEngine
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, pixelweight, scatter, shuffle
-    from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
+    from hybrid_ctunet_tpu_torch.ops import attention, ffn, pixelweight, shuffle
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -220,36 +230,7 @@ def phase_kernels(device):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    results = {}
-
-    # K1: one chunk of 4 windows at unaligned starts (overlap 0.7) into the
-    # 256x256x128x(14+1) canvas; predictions bf16 as the model emits them
-    planner = SlidingWindowEngine(None, bench.ROI, overlap=bench.OVERLAP)
-    _, _, _, starts = planner.plan(bench.VOLUME_SHAPE)
-    chunk = starts[4:8]
-    imp = torch.tensor(gaussian_importance_map(bench.ROI), device=device)
-    pred = randn(CHUNK, *bench.ROI, bench.OUT_CHANNELS, dtype=bf)
-    acc0 = randn(*bench.VOLUME_SHAPE, bench.OUT_CHANNELS + 1)
-    got = scatter.scatter_add_windows(acc0.clone(), pred, imp, chunk)
-    want = scatter.reference_scatter_add_windows(acc0.clone(), pred, imp, chunk)
-    torch.cuda.synchronize()
-    exact = torch.equal(got, want)
-    max_abs = (got - want).abs().max().item()
-    log(f"  scatter_add_windows starts {chunk.tolist()}: bit-exact {exact} max_abs_err {max_abs!r}")
-    if not exact:
-        raise AssertionError("scatter_add_windows is not bit-exact with its plain version")
-    acc = acc0.clone()
-    ms = cuda_time_ms(lambda: scatter.scatter_add_windows(acc, pred, imp, chunk))
-    plain = cuda_time_ms(lambda: scatter.reference_scatter_add_windows(acc, pred, imp, chunk))
-    covered = np.zeros(bench.VOLUME_SHAPE, bool)  # the canvas the windows read and write
-    for x0, y0, z0 in chunk.tolist():
-        covered[x0:x0 + bench.ROI[0], y0:y0 + bench.ROI[1], z0:z0 + bench.ROI[2]] = True
-    canvas_bytes = int(covered.sum()) * (bench.OUT_CHANNELS + 1) * 4
-    log(f"  scatter_add_windows: {ms!r} ms, plain {plain!r} ms")
-    t = Tally(library=False)
-    t.add(max_abs, 1, ms, plain, nbytes(pred, imp) + 2 * canvas_bytes, 2 * pred.numel())
-    results["scatter_add_windows"] = t.row()
-    del acc, acc0, got, want, pred
+    results = {"scatter_add_windows": scatter_rows(device)}
 
     # K2: window attention at pyramid stages 0-2 (block and grid calls share
     # shapes: 2 calls per stage per chunk), the bias from a random
@@ -446,6 +427,51 @@ def phase_kernels(device):
     results["instance_norm"] = norm_rows(randn, nbytes)
     results["conv3x3_winograd"] = winograd_rows(randn, nbytes)
     return results
+
+
+def scatter_rows(device):
+    """K1 at its four main-path chunk shapes on the 256x256x128x15 canvas
+    (``kernel_variants.k1_chunks``: windows 4-7 of the TUNet engine at
+    overlap 0.7, the row, and of the CTUNet engine at 0.5; each engine's
+    trailing chunk, 3 and 2 windows), each held bit for bit to its plain
+    version and timed with the plain version and the bound: the canvas the
+    windows cover read and written once, the predictions and the importance
+    read once, 2C+1 fp32 operations per window voxel."""
+    import numpy as np
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli.kernel_variants import k1_chunks
+    from hybrid_ctunet_tpu_torch.ops import scatter
+
+    row, chunks = None, []
+    for name, acc0, pred, imp, starts in k1_chunks(device):
+        got = scatter.scatter_add_windows(acc0.clone(), pred, imp, starts)
+        want = scatter.reference_scatter_add_windows(acc0.clone(), pred, imp, starts)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        max_abs = (got - want).abs().max().item()
+        log(f"  scatter_add_windows {name} starts {starts.tolist()}: bit-exact {exact} "
+            f"max_abs_err {max_abs!r}")
+        if not exact:
+            raise AssertionError(f"scatter_add_windows {name}: not bit-exact with its plain version")
+        del got, want
+        acc = acc0.clone()
+        ms = cuda_time_ms(lambda: scatter.scatter_add_windows(acc, pred, imp, starts))
+        plain = cuda_time_ms(lambda: scatter.reference_scatter_add_windows(acc, pred, imp, starts))
+        covered = np.zeros(acc.shape[:3], bool)  # the canvas the windows read and write
+        for x0, y0, z0 in starts.tolist():
+            covered[x0:x0 + imp.shape[0], y0:y0 + imp.shape[1], z0:z0 + imp.shape[2]] = True
+        canvas_bytes = int(covered.sum()) * acc.shape[-1] * 4
+        t = Tally(library=False)
+        t.add(max_abs, 1, ms, plain, pred.numel() * pred.element_size() + imp.numel() * 4
+              + 2 * canvas_bytes, 0, fp32_flops=len(starts) * imp.numel() * (2 * pred.shape[-1] + 1))
+        chunk = {"chunk": name, "starts": starts.tolist(), "bit_exact": exact, **t.row()}
+        log(f"  scatter_add_windows {name}: {ms!r} ms, plain {plain!r} ms, bound "
+            f"{chunk['bound_ms']!r} ms")
+        chunks.append(chunk)
+        row = row or t.row()  # the row: the TUNet chunk of 4 windows
+        del acc
+    return {**row, "chunks": chunks}
 
 
 def norm_rows(randn, nbytes):
@@ -813,11 +839,16 @@ def n_chunks(engine):
     return n, -(-n // engine.sw_batch_size)
 
 
-def phase_tunet(device):
+def phase_tunet(device, work):
+    """The TUNet slice (phase 4); the TUNet is then saved as
+    ``work/tunet/model_vit.pt`` (the reference's checkpoint format,
+    ``train/checkpoint.py::save_checkpoint``) for phase 7."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.train.checkpoint import save_checkpoint
+    from hybrid_ctunet_tpu_torch.train.state import make_optimizer
 
     t0 = time.perf_counter()
     model = bench.build_tunet(SEED, device)
@@ -850,6 +881,9 @@ def phase_tunet(device):
     log(f"  timed volumes {stats['seconds_per_volume']!r} s -> "
         f"{stats['volumes_per_min']!r} vol/min; peak memory {stats['peak_mem_bytes']} B")
     model_check("TUNet", lambda x: model(x)[0], device)
+    path = save_checkpoint(os.path.join(work, "tunet"), "model_vit.pt", model,
+                           make_optimizer(model.parameters()), epoch=0, best_acc=0.0)
+    log(f"  saved {path}")
     return model, engine, volume, stats
 
 
@@ -1119,47 +1153,223 @@ def phase_train_steps(device, steps_timed: int = 5):
             "peak_mem_bytes": peak, "launches_per_step": per_step}
 
 
-def phase_train_cli(device):
+def phase_train_cli(device, work):
     """``train_main`` end to end, as main_CTUNet.py runs it: --synthetic,
     two epochs, validation at the second, the three best-metric files and
     latest.pt, which must load back into a fresh CTUNet. Every kernel,
-    K1 (validation) included, launches in the run."""
-    import tempfile
-
+    K1 (validation) included, launches in the run. The checkpoints stay in
+    ``work/train`` for phase 7."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import factory, train_main
     from hybrid_ctunet_tpu_torch.train.checkpoint import load_weights
 
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--model_depths", "101", "--patch_frame", "8", "--synthetic",
-                "--max_epochs", "2", "--val_every", "2", "--warmup_epochs", "1",
-                "--save_checkpoint", "--data_dir", os.path.join(tmp, "data"),
-                "--logdir", os.path.join(tmp, "logs")]
-        log(f"  train_main {' '.join(argv)}")
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        best = train_main.main("ctunet", argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        files = sorted(os.listdir(os.path.join(tmp, "logs")))
-        log(f"  {wall!r} s; best {best}; files {files}; launches {counts}")
-        missing = {"model_hybrid.pt", "model_res.pt", "model_vit.pt", "latest.pt"} - set(files)
-        if missing:
-            raise AssertionError(f"train_main did not write {sorted(missing)}")
-        if not all(counts.values()):
-            raise AssertionError(f"a kernel was not launched in the CLI run: {counts}")
-        fresh = factory.build_model(train_args(), device)
-        ckpt = load_weights(fresh, os.path.join(tmp, "logs", "latest.pt"))
-        if ckpt["epoch"] != 2 or not all(torch.isfinite(p).all() for p in fresh.parameters()):
-            raise AssertionError(f"latest.pt: epoch {ckpt['epoch']} or non-finite weights")
-        log(f"  latest.pt loads into a fresh CTUNet (epoch {ckpt['epoch']}, "
-            f"{len(ckpt['state_dict'])} tensors)")
-        del fresh, ckpt
+    logs = os.path.join(work, "train")
+    argv = ["--model_depths", "101", "--patch_frame", "8", "--synthetic",
+            "--max_epochs", "2", "--val_every", "2", "--warmup_epochs", "1",
+            "--save_checkpoint", "--data_dir", os.path.join(work, "train_data"),
+            "--logdir", logs]
+    log(f"  train_main {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = train_main.main("ctunet", argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    files = sorted(os.listdir(logs))
+    log(f"  {wall!r} s; best {best}; files {files}; launches {counts}")
+    missing = {"model_hybrid.pt", "model_res.pt", "model_vit.pt", "latest.pt"} - set(files)
+    if missing:
+        raise AssertionError(f"train_main did not write {sorted(missing)}")
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel was not launched in the CLI run: {counts}")
+    fresh = factory.build_model(train_args(), device)
+    ckpt = load_weights(fresh, os.path.join(logs, "latest.pt"))
+    if ckpt["epoch"] != 2 or not all(torch.isfinite(p).all() for p in fresh.parameters()):
+        raise AssertionError(f"latest.pt: epoch {ckpt['epoch']} or non-finite weights")
+    log(f"  latest.pt loads into a fresh CTUNet (epoch {ckpt['epoch']}, "
+        f"{len(ckpt['state_dict'])} tensors)")
+    del fresh, ckpt
     torch.cuda.empty_cache()
-    return {"wall_s": wall, "best": best, "launches": counts}
+    return {"wall_s": wall, "best": best, "launches": counts, "logs": logs}
+
+
+# the eval case: native voxels at the preprocessing's target spacing, so that
+# its grid is the bench's 256x256x128 and the host's inverse resample is the
+# identity (at 1 x 1 x 2.5 mm, 384x384x103 voxels, the resample of two
+# 14-channel maps back to the native grid took the host ~97 s a case)
+EVAL_SHAPE, EVAL_SPACING = (256, 256, 128), (1.5, 1.5, 2.0)
+
+
+def eval_hooks(record):
+    """Context: the eval CLI's device half timed per call (``_dispatch`` up
+    to its maps' arrival in host memory, with the grid and the engine's
+    window count), its case pipeline timed whole, and every K1 call of an
+    engine's first and trailing chunk held bit for bit to the plain version
+    on the eval's own canvas and predictions (a copy of the canvas taken
+    before the call). ``record``: a dict the hooks fill."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import test_main
+    from hybrid_ctunet_tpu_torch.infer import sliding_window
+    from hybrid_ctunet_tpu_torch.ops import scatter
+
+    def dispatch(engine, model, case):
+        t0 = time.perf_counter()
+        record.setdefault("first_dispatch", t0)
+        _, done = handle = orig_dispatch(engine, model, case)
+        done.synchronize()
+        grid = tuple(case.image.shape[:3])
+        n = len(engine.plan(grid)[3])
+        record["device_s"].append(time.perf_counter() - t0)
+        record["runs"].append((grid, n, -(-n // engine.sw_batch_size), engine.num_outputs))
+        return handle
+
+    def pipeline(cases, dispatch_fn, finish):
+        t0 = time.perf_counter()
+        out = orig_pipeline(cases, dispatch_fn, finish)
+        record["pipeline_s"].append(time.perf_counter() - t0)
+        return out
+
+    def checked_scatter(acc, pred, imp, starts):
+        last = tuple(d - r for d, r in zip(acc.shape[:3], imp.shape))
+        if np.any(starts[0]) and tuple(starts[-1].tolist()) != last:
+            return scatter.scatter_add_windows(acc, pred, imp, starts)
+        before = acc.clone()
+        out = scatter.scatter_add_windows(acc, pred, imp, starts)
+        want = scatter.reference_scatter_add_windows(before, pred, imp, starts)
+        if not torch.equal(out, want):
+            raise AssertionError(f"K1 on the eval's chunk {starts.tolist()}: not bit-exact")
+        record["k1_checked"].append(len(starts))
+        return out
+
+    orig_dispatch, orig_pipeline = test_main._dispatch, test_main._pipeline_cases
+
+    @contextlib.contextmanager
+    def ctx():
+        test_main._dispatch, test_main._pipeline_cases = dispatch, pipeline
+        sliding_window.scatter_add_windows = checked_scatter
+        try:
+            yield
+        finally:
+            test_main._dispatch, test_main._pipeline_cases = orig_dispatch, orig_pipeline
+            sliding_window.scatter_add_windows = scatter.scatter_add_windows
+
+    return ctx()
+
+
+def phase_eval(work, ct_dir, tu_dir):
+    """The eval CLI (``cli/test_main.py``) on one synthetic validation case
+    whose preprocessed grid is the bench's 256x256x128, at full width
+    (ResNet-101, pf 8, ROI 96, 14 classes, bf16): ``test_final`` with phase
+    6's trained ``model_res.pt`` and phase 4's TUNet, then again with
+    ``--postprocess``, then ``test_ctunet`` on phase 6's three checkpoints.
+    Each run's launches equal the module tree's per chunk times its chunks,
+    every engine's first and trailing K1 call is bit-exact on the eval's own
+    data, the Dice and HD95 are finite, the report has its HD95 block, the
+    masks load back at the case's native shape; seconds per case on the
+    device (sliding window, maps to host memory) and on the host (invert,
+    metrics, save)."""
+    import numpy as np
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import test_main
+    from hybrid_ctunet_tpu_torch.data.nifti import load_nifti
+    from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
+    from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
+
+    data = os.path.join(work, "eval_data")
+    t0 = time.perf_counter()
+    path = write_synthetic_dataset(data, n_train=0, n_val=1, shape=EVAL_SHAPE,
+                                   spacing=EVAL_SPACING)
+    log(f"  synthetic case {EVAL_SHAPE} written in {time.perf_counter() - t0!r} s")
+    common = ["--data_dir", data, "--json_list", os.path.basename(path), "--model_depths", "101",
+              "--patch_frame", "8"]
+    meta = dict(out_channels=14, patch_frame=8, dtype=torch.bfloat16, device="meta")
+    tree_ct = tree_launches(CTUNet(model_depth=101, **meta))
+    tree_ct["scatter_add_windows"] = 2  # two canvases a chunk
+    tree_ct_res = tree_launches(CTUNet(model_depth=101, **meta), res_only=True)
+    tree_tu = tree_launches(TUNet(**meta))
+    final = [f"--ctunet_dir={ct_dir}", f"--tunet_dir={tu_dir}"]
+    runs = (  # (name, entry, exp_name, flags, the module tree of each engine run)
+        ("test_final", test_main.test_final, "final", final, [tree_ct_res, tree_tu]),
+        ("test_final --postprocess", test_main.test_final, "final_pp", final + ["--postprocess"],
+         [tree_ct_res, tree_tu]),
+        ("test_ctunet", test_main.test_ctunet, "ct3", [f"--pretrained_dir={ct_dir}"],
+         [tree_ct, tree_ct, tree_ct]),
+    )
+    label, _ = load_nifti(os.path.join(data, "labelsTr", "val_000.nii.gz"))
+    out, cwd = {}, os.getcwd()
+    os.chdir(work)  # the CLI writes under ./outputs/<exp_name>
+    try:
+        for name, entry, exp, argv, trees in runs:
+            record = {"device_s": [], "pipeline_s": [], "runs": [], "k1_checked": []}
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()  # set-up (reading and preprocessing the case, the
+            # models and their checkpoints) ends at the first dispatch
+            with eval_hooks(record):
+                result = entry(common + argv + [f"--exp_name={exp}"])
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            for grid, n, chunks, heads in record["runs"]:
+                log(f"  {name}: grid {grid}, {n} windows, {chunks} chunks, {heads} map(s)")
+            check_launches(name, counts, [(tree, run[2]) for tree, run in
+                                          zip(trees, record["runs"])])
+            if name == "test_final" and not all(counts.values()):
+                raise AssertionError(f"{name}: a kernel was not launched: {counts}")
+            # each engine run checks its first and its trailing chunk (one
+            # call a canvas each)
+            want_checked = sum(2 * heads for _, _, _, heads in record["runs"])
+            if len(record["k1_checked"]) != want_checked:
+                raise AssertionError(f"{name}: {len(record['k1_checked'])} K1 calls checked, "
+                                     f"expected {want_checked}")
+            setup_s = record["first_dispatch"] - t0
+            device_s = sum(record["device_s"])
+            host_s = wall - setup_s - device_s
+            case_s = sum(record["pipeline_s"]) - device_s
+            log(f"  {name}: {wall!r} s in all, set-up {setup_s!r} s; per case: device "
+                f"{device_s!r} s (sliding window, maps to host memory: {record['device_s']!r}), "
+                f"host {host_s!r} s ({case_s!r} s in the case loop: invert, softmax, save; "
+                f"{host_s - case_s!r} s after it: metrics"
+                f"{' and postprocessing' if 'postprocess' in name else ''}); K1 bit-exact on {len(record['k1_checked'])} "
+                f"first/trailing chunk calls {record['k1_checked']}")
+            out_dir = os.path.join(work, "outputs", exp)
+            masks = sorted(f for f in os.listdir(out_dir) if f.endswith(".nii.gz"))
+            for f in masks:
+                mask, _ = load_nifti(os.path.join(out_dir, f))
+                if mask.shape != label.shape[:3] or mask.max() >= 14:
+                    raise AssertionError(f"{f}: mask {mask.shape} (label {label.shape})")
+            if name.startswith("test_final"):
+                dice, hd = np.asarray(result["dice"]), np.asarray(result["hd95"])
+                text = open(os.path.join(out_dir, "dice.txt")).read()
+                if not (np.isfinite(dice).all() and np.isfinite(hd).all()
+                        and "mean_hd95:" in text and len(masks) == 1):
+                    raise AssertionError(f"{name}: dice {dice}, hd95 {hd}, report or mask missing")
+                log(f"  {name}: mean Dice {float(dice.mean())!r} (raw "
+                    f"{float(np.mean(result['dice_raw']))!r}), mean HD95 {float(hd.mean())!r}; "
+                    f"per-organ Dice {dice.tolist()}")
+                summary = {"mean_dice": float(dice.mean()), "mean_hd95": float(hd.mean())}
+            else:
+                rows = {k: np.asarray(v) for k, v in result.items()}
+                if not (all(np.isfinite(v).all() for v in rows.values()) and len(masks) == 2):
+                    raise AssertionError(f"{name}: rows {rows} or masks {masks}")
+                log(f"  {name}: mean Dice " + ", ".join(
+                    f"{k} {float(v.mean())!r}" for k, v in rows.items()))
+                summary = {k: float(v.mean()) for k, v in rows.items()}
+            out[name] = {"wall_s": wall, "setup_s": setup_s, "device_s": device_s,
+                         "host_s": host_s, "host_invert_save_s": case_s,
+                         "launches": counts, "k1_checked_calls": len(record["k1_checked"]),
+                         **summary}
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1188,8 +1398,11 @@ def main() -> int:
     log("phase 3: kernels against their plain versions (ms per 4-window chunk)")
     results = phase_kernels(device)
 
+    work_dir = tempfile.TemporaryDirectory()  # checkpoints and data of phases 4-7
+    work = work_dir.name
+
     log("phase 4: TUNet sliding-window slice")
-    tunet, tu_engine, volume, tu_stats = phase_tunet(device)
+    tunet, tu_engine, volume, tu_stats = phase_tunet(device, work)
 
     log("phase 5: Hybrid-CTUNet ensemble")
     hy_stats, counts = phase_hybrid(tunet, tu_engine, volume, device)
@@ -1199,7 +1412,11 @@ def main() -> int:
     log("phase 6: training (the slice's main path)")
     grads = phase_train_grads(device)
     train = phase_train_steps(device)
-    cli = phase_train_cli(device)
+    cli = phase_train_cli(device, work)
+
+    log("phase 7: the eval CLI (cli/test_main.py) on the card")
+    ev = phase_eval(work, cli["logs"], os.path.join(work, "tunet"))
+    work_dir.cleanup()
 
     entries = []
     for info in kernels.KERNELS:
@@ -1208,6 +1425,8 @@ def main() -> int:
             "replaces": info.replaces, "launches": counts[info.name], **results[info.name],
             "train_launches_per_step": train["launches_per_step"][info.name],
             "train_cli_launches": cli["launches"][info.name],
+            "eval_final_launches": ev["test_final"]["launches"][info.name],
+            "eval_ctunet_launches": ev["test_ctunet"]["launches"][info.name],
         })
     log(json.dumps({
         "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
@@ -1218,6 +1437,8 @@ def main() -> int:
         "train": {**{k: train[k] for k in ("seconds_per_step", "mean_s", "losses",
                                           "peak_mem_bytes")},
                   "grad_worst_rel_l2": grads, "cli_wall_s": cli["wall_s"]},
+        "eval": {name: {k: v for k, v in run.items() if k != "launches"}
+                 for name, run in ev.items()},
     }))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -18,13 +18,17 @@ port imports ``torch`` and numpy only, never ``jax`` or ``flax``.
                 dataset and the seeded train loader (numpy).
 - ``train``   — LR schedules, optimizers, the losses and train step,
                 reference-format checkpoints, the training loop.
-- ``eval``    — per-organ Dice and HD95.
+- ``eval``    — per-organ Dice and HD95, largest-connected-component
+                postprocessing, the dice.txt report.
 - ``kernels`` — nvcc build of ``csrc/*.cu`` into ctypes libraries, and the
                 table of kernels with their launch counts.
 - ``utils``   — weight carry-over from the JAX parameter trees, random init,
                 scalar logging.
 - ``cli``     — ``bench``: the Hybrid-CTUNet ensemble on one volume;
-                ``train_main``: the reference's training entry point.
+                ``train_main``: the reference's training entry point;
+                ``test_main``: its evaluation entry points;
+                ``kernel_variants``: kernel design variants timed on the
+                card.
 
 Public functions keep the JAX package's channels-last (NDHWC) layout.
 """

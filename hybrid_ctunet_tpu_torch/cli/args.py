@@ -114,3 +114,13 @@ def build_train_parser(entry: str) -> argparse.ArgumentParser:
         p.add_argument("--model_name", default="c_t_unet", type=str, help="model name")
         p.add_argument("--model_depths", default=101, type=int, help="resnet model depth")
     return p
+
+
+def build_test_parser(entry: str) -> argparse.ArgumentParser:
+    """The test scripts' surfaces (test_C_TUNet.py / test_CTUNet.py /
+    test_CTUNet_final.py): the train flags plus the eval outputs."""
+    p = build_train_parser("ctunet" if "ctunet" in entry else "c_tunet")
+    p.add_argument("--exp_name", default="test1", type=str, help="experiment output dir name")
+    p.add_argument("--postprocess", action="store_true",
+                   help="largest-connected-component postprocessing (final ensemble)")
+    return p

@@ -20,9 +20,12 @@ from ..utils.params import random_init_
 SEED = 0  # random initial weights (the JAX package inits from PRNGKey(0))
 
 
-def check_supported(args) -> None:
-    """Exit on the flags whose feature waits for a later port PR."""
-    if args.dropout_rate > 0:
+def check_supported(args, *, training: bool = True) -> None:
+    """Exit on the flags whose feature waits for a later port PR, or that
+    the JAX package refuses too (``--resume_jit``). Evaluation
+    (``training=False``) takes ``--dropout_rate > 0``: the model runs in
+    eval mode, where dropout is the identity."""
+    if training and args.dropout_rate > 0:
         raise SystemExit("--dropout_rate > 0: dropout is not ported yet (ROADMAP A12)")
     if args.norm_name == "batch":
         raise SystemExit("--norm_name batch: BatchNorm is not ported yet (ROADMAP A13)")
@@ -33,8 +36,20 @@ def check_supported(args) -> None:
         raise SystemExit("--distributed: multi-GPU training is not ported yet (ROADMAP A10)")
     if args.resume_jit:
         raise SystemExit("--resume_jit loads a TorchScript module (reference "
-                         "main_C_TUNet.py:159); not ported yet (ROADMAP A8). Use a state_dict "
-                         ".pt with --resume_ckpt or --checkpoint.")
+                         "main_C_TUNet.py:159), which the JAX package refuses too. Use a "
+                         "state_dict .pt with --resume_ckpt or --checkpoint.")
+
+
+def load_eval_weights(model: torch.nn.Module, path: str):
+    """Weights-only load of the test entries (the JAX package's
+    ``load_eval_params``): a reference-format ``.pt`` / ``.pth`` file, the
+    port's checkpoints and the reference's, into ``model``; returns the
+    file's dict. Orbax checkpoint directories are the JAX package's own
+    format and exit with a message."""
+    if os.path.isdir(path) or not path.endswith((".pt", ".pth")):
+        raise SystemExit(f"{path}: not a .pt / .pth file; orbax checkpoint directories are "
+                         "the JAX package's format. Save a state_dict .pt instead.")
+    return load_weights(model, path)
 
 
 def select_device(args) -> torch.device:

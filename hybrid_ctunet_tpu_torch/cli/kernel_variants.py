@@ -1,6 +1,6 @@
-"""Design variants of K7 (``csrc/pixelweight.cu``) and K5
-(``csrc/pixel_shuffle.cu``), timed in one process on the card at the main
-path's shapes.
+"""Design variants of K7 (``csrc/pixelweight.cu``), K5
+(``csrc/pixel_shuffle.cu``) and K1 (``csrc/scatter.cu``), timed in one
+process on the card at the main path's shapes.
 
     python -m hybrid_ctunet_tpu_torch.cli.kernel_variants [--parent DIR]
 
@@ -9,11 +9,13 @@ design constant, or a phase cut (a phase removed, to see what it costs).
 Variants build with the port's nvcc flags into ``build/kernel_variants/``
 and run through the committed kernel's C entry arguments on the same inputs.
 Alternatives are held to the plain version with chip_smoke.py's bf16
-tolerance; cuts compute something else and are only timed. ``--parent DIR``
-also builds the two kernels of another checkout with the C signatures they
-had before their Hopper redesign (the design these replaced) and times them
-beside. One JSON line per (kernel, variant, site): ms per call, the median of
-5 CUDA-event timings of 10 back-to-back calls; the card's name and power
+tolerance (K1's bit for bit); cuts compute something else and are only
+timed. ``--parent DIR`` also builds the kernels of another checkout that
+differ from the committed ones, with the C signatures they had before their
+Hopper redesign (the design these replaced), and times them beside; K1's
+parent also with its index math replaced (``K1_PARENT_VARIANTS``). One
+JSON line per (kernel, variant, site): ms per call, the median of 5
+CUDA-event timings of 10 back-to-back calls; the card's name and power
 limit first.
 """
 from __future__ import annotations
@@ -29,10 +31,11 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import kernels
-from ..ops import pixelweight, shuffle
+from ..ops import pixelweight, scatter, shuffle
 from .bench import device_line
 
 OUT_DIR = kernels.BUILD_DIR.parent / "kernel_variants"
@@ -67,6 +70,35 @@ K5_VARIANTS = (
     ("ring 2 stages at C 512", [("NL <= 8 ? 3 : 0", "NL <= 8 ? 3 : NL <= 16 ? 2 : 0")], False),
     ("no ring (direct loads)", [("NL <= 4 ? 4 : NL <= 8 ? 3 : 0", "0")], False),
     ("128 features a pass", [("constexpr int NT = 8;", "constexpr int NT = 16;")], False),
+)
+
+K1_VARIANTS = (
+    ("committed", [], False),
+    ("runtime C (32-bit division by a variable)", [("if (g.C + 1 == 15) return launch<T, 15>",
+                                                    "if (false) return launch<T, 15>")], False),
+    ("element copies instead of bulk copies", [("g.bulk = (rz * C * esize) % 16 == 0",
+                                                "g.bulk = false && (rz * C * esize) % 16 == 0")],
+     False),
+    ("1 float4 load in flight a thread", [("constexpr int UNROLL = 2;",
+                                           "constexpr int UNROLL = 1;")], False),
+    ("4 float4 loads in flight a thread", [("constexpr int UNROLL = 2;",
+                                            "constexpr int UNROLL = 4;")], False),
+    # each canvas value is stored back unchanged; nvcc may drop such a load
+    # and store, and the cut then times the rows' staging alone
+    ("cut: no window sums (only the rows' staging)", [("for (int j = 0; j < nw; ++j) {",
+                                                       "for (int j = 0; j < 0; ++j) {")],
+     True),
+)
+# edits of the parent's K1 (one thread per canvas element, its index
+# divided out in 64 bits): the same division in 32 bits, then by a constant
+_INDEX_32 = [("    const int c = (int)(t % K);\n    long long v = t / K;",
+              "    const int t32 = (int)t;\n    const int c = t32 % K;\n    int v = t32 / K;"),
+             ("const long long local = ((long long)wx * ry + wy) * rz + wz;",
+              "const int local = (wx * ry + wy) * rz + wz;")]
+K1_PARENT_VARIANTS = (
+    ("parent, 32-bit index math", _INDEX_32, False),
+    ("parent, 32-bit index math, K = 15 constant",
+     _INDEX_32 + [("const int K = C + 1;", "const int K = 15;")], False),
 )
 
 K7_SITES = ((4, 12, 12, 24, 512), (4, 24, 24, 48, 256), (4, 48, 48, 96, 128))
@@ -117,15 +149,19 @@ def _agrees(got, want) -> bool:
         (d.norm() / want.float().norm()).item() <= 1e-2
 
 
-def _libs(name: str, variants, parent: Path | None):
-    """{variant: CDLL}, built in parallel; the parent's source as 'parent'."""
+def _libs(name: str, variants, parent: Path | None, parent_variants=()):
+    """{variant: CDLL}, built in parallel; the parent's source, where it
+    differs from the committed one, as 'parent', and ``parent_variants``,
+    edits of it."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     src = (kernels.CSRC / f"{name}.cu").read_text()
     jobs = {v: (OUT_DIR / f"{name}_{i}.cu", _edit(src, e))
             for i, (v, e, _) in enumerate(variants)}
-    if parent is not None:
-        parent_src = parent / "hybrid_ctunet_tpu_torch" / "csrc" / f"{name}.cu"
-        jobs["parent"] = (OUT_DIR / f"{name}_parent.cu", parent_src.read_text())
+    parent_src = parent and (parent / "hybrid_ctunet_tpu_torch" / "csrc" / f"{name}.cu").read_text()
+    if parent_src and parent_src != src:  # an unchanged kernel has no other design to time
+        jobs["parent"] = (OUT_DIR / f"{name}_parent.cu", parent_src)
+        for i, (v, e, _) in enumerate(parent_variants):
+            jobs[v] = (OUT_DIR / f"{name}_parent_{i}.cu", _edit(parent_src, e))
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {v: ex.submit(_build, *job) for v, job in jobs.items()}
         return {v: f.result() for v, f in futs.items()}
@@ -195,10 +231,59 @@ def run_k5(parent: Path | None, device):
         del keep
 
 
+def k1_chunks(device):
+    """(name, acc, pred, imp, starts) of K1's four main-path chunk shapes on
+    the 256x256x128x15 canvas: windows 4-7 of the TUNet (overlap 0.7) and of
+    the CTUNet (0.5) engines, and each engine's trailing chunk (3 of the
+    TUNet's 147 windows, 2 of the CTUNet's 50); random canvas, bf16
+    predictions as the models emit them."""
+    from ..infer.sliding_window import SlidingWindowEngine
+    from ..ops.importance import gaussian_importance_map
+    from . import bench
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    imp = torch.tensor(gaussian_importance_map(bench.ROI), device=device)
+    acc = torch.randn(*bench.VOLUME_SHAPE, bench.OUT_CHANNELS + 1, generator=gen, device=device)
+    pred = torch.randn(4, *bench.ROI, bench.OUT_CHANNELS, generator=gen,
+                       device=device).to(torch.bfloat16)
+    chunks = []
+    for model, overlap in (("tunet", bench.OVERLAP), ("ctunet", bench.CT_OVERLAP)):
+        starts = SlidingWindowEngine(None, bench.ROI, overlap=overlap).plan(bench.VOLUME_SHAPE)[3]
+        last = (len(starts) - 1) // 4 * 4
+        for name, s in ((f"{model} windows 4-7", starts[4:8]),
+                        (f"{model} trailing ({len(starts) - last} of {len(starts)})",
+                         starts[last:])):
+            chunks.append((name, acc, pred[:len(s)].contiguous(), imp, s))
+    return chunks
+
+
+def run_k1(parent: Path | None, device):
+    libs = _libs("scatter", K1_VARIANTS, parent, K1_PARENT_VARIANTS if parent else ())
+    cuts = {v for v, _, cut in K1_VARIANTS if cut}
+    for name, acc0, pred, imp, starts in k1_chunks(device):
+        want = scatter.reference_scatter_add_windows(acc0.clone(), pred, imp, starts)
+        group = np.ascontiguousarray(starts, np.int32)
+        X, Y, Z, K = acc0.shape
+        for v, lib in libs.items():
+            f = lib.scatter_add_windows  # one C signature across the designs
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            acc = acc0.clone()
+            call_args = (acc.data_ptr(), pred.data_ptr(), 1, imp.data_ptr(), group.ctypes.data,
+                         len(group), X, Y, Z, K - 1, *imp.shape, kernels.stream_ptr(device))
+            kernels.check(f(*call_args), f"scatter {v}")
+            torch.cuda.synchronize()
+            ok = None if v in cuts else bool(torch.equal(acc, want))
+            yield {"kernel": "scatter_add_windows", "variant": v, "chunk": name,
+                   "starts": starts.tolist(), "ms": _time(lambda: f(*call_args)),
+                   "bit_exact": ok}
+            del acc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose K7 and K5 (their C signatures before the redesign) "
+                    help="a checkout whose K7, K5 and K1 (their C signatures before the redesign) "
                          "are timed beside")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -206,7 +291,8 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     print(json.dumps({"device": device_line()}), flush=True)
-    for row in itertools.chain(run_k7(args.parent, device), run_k5(args.parent, device)):
+    for row in itertools.chain(run_k7(args.parent, device), run_k5(args.parent, device),
+                               run_k1(args.parent, device)):
         print(json.dumps(row), flush=True)
     return 0
 

@@ -6,7 +6,8 @@ Returns ``(train_loader, val_cases)``: ``train_loader`` yields channels-last
 crop batches, ``val_cases`` are whole preprocessed volumes with native-grid
 labels and the metadata to invert predictions (the reference keeps
 validation labels native and inverts its predictions,
-data_utils.py:103-115).
+data_utils.py:103-115). In ``test_mode`` only the validation cases are
+built.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from .dataset import CachedDataset, TrainLoader
 
 def get_loader(args):
     """args needs: data_dir, json_list, batch_size, roi_x/y/z, space_x/y/z,
-    a_min/a_max/b_min/b_max, the four Rand*_prob, use_normal_dataset."""
+    a_min/a_max/b_min/b_max, the four Rand*_prob, use_normal_dataset. With
+    ``args.test_mode`` only the validation cases are built: ``(None,
+    val_cases)``, no training file read."""
     from ..train.trainer import ValCase
 
     json_path = os.path.join(args.data_dir, args.json_list)
@@ -34,6 +37,9 @@ def get_loader(args):
         img, lab, meta, item = val_ds.get(i)
         name = os.path.basename(item.get("image", f"case_{i}"))
         val_cases.append(ValCase(image=img, label=lab, meta=meta, name=name))
+
+    if getattr(args, "test_mode", False):
+        return None, val_cases
 
     train_files = load_decathlon_datalist(json_path, data_list_key="training",
                                           base_dir=args.data_dir)

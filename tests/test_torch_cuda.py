@@ -44,6 +44,47 @@ def test_scatter_bit_exact(dev):
     assert torch.equal(got, want)
 
 
+def _scatter_case(dev, seed, canvas, roi, C, n, dtype=BF):
+    """Random canvas and predictions; window starts random, the first two
+    at opposite corners (the rows between them in the bounding box are
+    uncovered unless a later window falls there), every z-start not a
+    multiple of 4 where the canvas allows (unaligned canvas runs)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hi = [c - r for c, r in zip(canvas, roi)]
+    starts = np.stack([rng.integers(0, h + 1, n) for h in hi], -1).astype(np.int32)
+    starts[0, :2], starts[min(1, n - 1), :2] = 0, hi[:2]
+    odd = starts[:, 2] % 4 == 0
+    starts[odd, 2] = np.minimum(starts[odd, 2] + 1, hi[2])
+    imp = torch.tensor(gaussian_importance_map(roi), device=dev)
+    pred = _randn(gen, n, *roi, C, dtype=dtype, dev=dev)
+    acc = _randn(gen, *canvas, C + 1, dev=dev)
+    return acc, pred, imp, starts
+
+
+@pytest.mark.parametrize("C", [3, 14])
+@pytest.mark.parametrize("n", [1, 2, 4, 33])
+def test_scatter_rows_bit_exact(dev, C, n):
+    """K1 bit for bit against its plain version: C 14 (the constant-C
+    instance) and 3 (runtime C; its 12 x 3 bf16 rows are not 16-byte
+    multiples, so they are staged by element copies), 1-4 windows and 33
+    (two launches of at most 32), unaligned z-starts, uncovered rows."""
+    acc, pred, imp, starts = _scatter_case(dev, 10 * n + C, (33, 29, 37), (10, 9, 12), C, n)
+    launches = scatter.scatter_add_windows.launches
+    got = scatter.scatter_add_windows(acc.clone(), pred, imp, starts)
+    assert scatter.scatter_add_windows.launches - launches == -(-n // 32)
+    assert torch.equal(got, scatter.reference_scatter_add_windows(acc.clone(), pred, imp, starts))
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_scatter_rows_in_groups(dev, dtype):
+    """Long rows (rz 400): a ring stage holds fewer windows than cover a
+    row, so each row is summed in groups, in window order."""
+    acc, pred, imp, starts = _scatter_case(dev, 77, (7, 6, 450), (4, 4, 400), 14, 9, dtype)
+    got = scatter.scatter_add_windows(acc.clone(), pred, imp, starts)
+    assert torch.equal(got, scatter.reference_scatter_add_windows(acc.clone(), pred, imp, starts))
+
+
 def _attention_inputs(gen, n, window, c, dev, ld=None):
     """q (pre-scaled), k, v as strided row views of one qkv tensor whose rows
     are ``ld`` >= 3c wide, and a ((2w-1)^3, heads) fp32 table."""

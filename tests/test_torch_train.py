@@ -338,7 +338,7 @@ def test_train_cli_end_to_end(tmp_path):
     (["--dropout_rate", "0.2"], "A12"),
     (["--norm_name", "batch"], "A13"),
     (["--distributed"], "A10"),
-    (["--resume_jit"], "A8"),
+    (["--resume_jit"], "TorchScript"),
     ([], "--device cpu"),
 ])
 def test_cli_refuses_what_it_lacks(flags, match):
