@@ -55,6 +55,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    eval's own canvas, finite Dice and HD95, the report's HD95 block, the
    masks at the case's native shape; seconds per case on the device and on
    the host.
+8. The remaining training configurations, this slice's main path, at full
+   width (ResNet-101, pf 8, batch 1 x 4 crops of 96^3, bf16, AdamW):
+   (a) ``--dropout_rate 0.2``: a warm-up and 3 timed steps with finite
+   losses and launches equal to the tree's with the dropout sites plain;
+   a step redone at the same (seed, step) draws the same masks; in eval
+   mode the res logits equal a rate-0 model's bit for bit on a chunk.
+   (b) ``--norm_name batch``: a warm-up and 3 timed steps (K8 at no
+   BatchNorm site), the running buffers moved and finite, one profiled
+   step, an eval chunk with every kernel held to its plain version.
+   (c) DDP on the one card: a DDP step (NCCL, world 1) against the plain
+   step, ``train_main --distributed`` for one epoch with validation (its
+   checkpoints written once, ``latest.pt`` reloaded), and ``test_final
+   --distributed`` on phase 7's case, whose masks must equal phase 7's.
+   Each sub-phase's s/step, peak memory and launches; the run's wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -87,6 +101,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 CHUNK = 4  # windows per chunk (sw_batch_size)
+CTUNET_PARAMS = 174_109_542  # at ResNet-101, pf 8, instance norm
 
 
 def log(*a):
@@ -194,7 +209,7 @@ def erff_fp32_flops() -> int:
 def record_norm_sites(model, x, **kw):
     """(shape, act) -> calls of the conv-path InstanceNorm in one forward of
     ``model`` on ``x`` (meta tensors: shapes only, nothing computed)."""
-    from hybrid_ctunet_tpu_torch.models import layers, resnet3d
+    from hybrid_ctunet_tpu_torch.models import layers
 
     sites = collections.Counter()
     orig = layers.instance_norm_act
@@ -203,11 +218,11 @@ def record_norm_sites(model, x, **kw):
         sites[(tuple(t.shape), act)] += 1
         return orig(t, act)
 
-    layers.instance_norm_act = resnet3d.instance_norm_act = rec
+    layers.instance_norm_act = rec
     try:
         model(x, **kw)
     finally:
-        layers.instance_norm_act = resnet3d.instance_norm_act = orig
+        layers.instance_norm_act = orig
     return sites
 
 
@@ -623,53 +638,56 @@ def winograd_rows(randn, nbytes):
     return row
 
 
-def tree_launches(model, res_only: bool = False):
+def tree_launches(model, res_only: bool = False, training: bool = False):
     """Kernel launches per chunk that the module tree of a TUNet, CTUNet or
     CUNet forward implies (CTUNet ``res_only``: the ensemble's predictor).
-    Every InstanceNorm of a ResBlock, Bottleneck or the ResNet stem is K8;
-    stages 0-2 of the attention pyramid run two window attentions (K2) and
-    a shuffle (K5) each, their FFNs K3 where hidden <= 1024 (stage 2; the
-    wider ViT-side stages 0-1 stay plain, as in the JAX package), stage 3
-    the FFN pair (K4) and a shuffle; each transposed conv is K6, each
-    pixelweight fusion K7; each 3^3 stride-1 conv of a 32-wide bottleneck
-    (the ResNet's stage 1) K9; the engine's scatter (K1) runs once a chunk."""
+    Every InstanceNorm site (``ConvNorm`` of kind instance: ResBlocks,
+    Bottlenecks, the ResNet stem) is K8, a BatchNorm site none; stages 0-2
+    of the attention pyramid run two window attentions (K2) and a shuffle
+    (K5) each, their FFNs K3 where hidden <= 1024 (stage 2; the wider
+    ViT-side stages 0-1 stay plain, as in the JAX package), stage 3 the FFN
+    pair (K4) and a shuffle; each transposed conv is K6, each pixelweight
+    fusion K7; each 3^3 stride-1 conv of a 32-wide bottleneck (the ResNet's
+    stage 1) K9; the engine's scatter (K1) runs once a chunk. ``training``:
+    a train-mode forward, where a window attention, FFN or fusion whose
+    dropout rate is > 0 takes its plain version (and stage 3 its two FFNs
+    unfused), so launches no kernel."""
     from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet
-    from hybrid_ctunet_tpu_torch.models import layers
-    from hybrid_ctunet_tpu_torch.models.resnet3d import Bottleneck
+    from hybrid_ctunet_tpu_torch.models import layers, resnet3d
 
-    def count(mods, cls):
-        return sum(isinstance(m, cls) for mod in mods for m in mod.modules())
+    def dropping(site):
+        return training and site.rate > 0
+
+    def count(mods, cls, site=None):
+        return sum(isinstance(m, cls) and not (site and dropping(site(m)))
+                   for mod in mods for m in mod.modules())
 
     def norms(mods):
-        n = 0
-        for mod in mods:
-            for m in mod.modules():
-                if isinstance(m, layers.ResBlock):
-                    n += 2 + int(m.needs_proj)
-                elif isinstance(m, Bottleneck):
-                    n += 3 + int(m.downsample is not None)
-        return n
+        return sum(isinstance(m, layers.ConvNorm) and m.kind == "instance"
+                   for mod in mods for m in mod.modules())
 
     got = {"scatter_add_windows": 1, "window_attention": 0, "ffn": 0, "ffn_pair": 0,
            "pixel_shuffle_linear": 0, "transp_conv_kxs": 0, "pixelweight": 0,
            "instance_norm": 0, "conv3x3_winograd": 0}
     if not isinstance(model, CUNet):
         stages = list(model.vit_encoder.layers[:3 if res_only else 4])
-        got["window_attention"] = count(stages, layers.MultiAxisWindowAttention)
+        got["window_attention"] = count(stages, layers.MultiAxisWindowAttention,
+                                        lambda m: m.drop_attn)
         got["ffn"] = sum(1 for s in stages[:3] for m in s.modules()
-                         if isinstance(m, layers.FeedForward) and m.net[1].weight.shape[0] <= 1024)
-        got["ffn_pair"] = int(len(stages) == 4)
+                         if isinstance(m, layers.FeedForward) and not dropping(m.net[3])
+                         and m.net[1].weight.shape[0] <= 1024)
+        got["ffn_pair"] = int(len(stages) == 4 and not dropping(stages[3][0][1].fn.net[3]))
         got["pixel_shuffle_linear"] = count(stages, layers.PixelShuffleLinear)
         if not res_only:
             got["instance_norm"] += norms([model.vit_encoder0, model.vit_decoder0])
     if isinstance(model, (CTUNet, CUNet)):
         dec = [getattr(model, f"res_decoder{k}") for k in range(4)]
         got["transp_conv_kxs"] = count(dec, layers.ConvTranspose3d)
-        got["pixelweight"] = count(dec, layers.PixelweightFusion)
-        got["instance_norm"] += 1 + norms([model.convnet, *dec])  # stem + blocks
+        got["pixelweight"] = count(dec, layers.PixelweightFusion, lambda m: m.drop_attn)
+        got["instance_norm"] += norms([model.convnet, *dec])  # stem + blocks
         # K9: the stride-1 3^3 conv2 of the 32-wide (stage-1) bottlenecks
         got["conv3x3_winograd"] = sum(
-            isinstance(m, Bottleneck) and m.conv2.conv.weight.shape[1] == 32
+            isinstance(m, resnet3d.Bottleneck) and m.conv2.conv.weight.shape[1] == 32
             and m.conv2.stride == (1, 1, 1) for m in model.convnet.modules())
     return got
 
@@ -1077,48 +1095,59 @@ def train_args(extra=()):
         ["--model_depths", "101", "--patch_frame", "8", *extra])
 
 
-def phase_train_steps(device, steps_timed: int = 5):
-    """The full-width CTUNet trained on --synthetic data through the port's
-    train step: one warm-up step and ``steps_timed`` timed ones (host clock
-    around each, ending in a synchronize), per-step launches equal to the
-    module tree's for the full five-output forward, a finite loss at every
-    step, and the peak memory of the timed steps; then one more step under
-    ``torch.profiler`` (its kernels by device time)."""
+def build_train(device, extra=()):
+    """The full-width CTUNet of ``train_args(extra)`` on the card, its
+    train step, the LR of epoch 1 and the module tree's launches per step,
+    with the ``--synthetic`` batches (4 crops of 96^3 each) of enough epochs
+    for 8 steps."""
     import tempfile
 
-    import torch
-
-    from hybrid_ctunet_tpu_torch import kernels
-    from hybrid_ctunet_tpu_torch.cli import bench, factory
+    from hybrid_ctunet_tpu_torch.cli import factory
     from hybrid_ctunet_tpu_torch.data.loader import get_loader
     from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
     from hybrid_ctunet_tpu_torch.train.schedule import make_epoch_schedule
     from hybrid_ctunet_tpu_torch.train.steps import make_train_step
 
     with tempfile.TemporaryDirectory() as tmp:
-        args = train_args(["--synthetic", "--data_dir", tmp])
+        args = train_args(["--synthetic", "--data_dir", tmp, *extra])
         args.model_name = "ctunet"
-        args.json_list = os.path.basename(write_synthetic_dataset(tmp))
+        args.json_list = os.path.basename(write_synthetic_dataset(
+            tmp, n_classes=args.out_channels))
         loader, _ = get_loader(args)
-        model = factory.build_model(args, device)
-        n_params = sum(p.numel() for p in model.parameters())
-        log(f"  CTUNet params {n_params}, batch {args.batch_size} x 4 crops of "
-            f"{(args.roi_x, args.roi_y, args.roi_z)}, {model.dtype} compute, {args.optim_name}")
-        if n_params != 174_109_542:
-            raise AssertionError(f"CTUNet has {n_params} params, expected 174109542")
-        step = make_train_step("ctunet", model, factory.build_optimizer(args, model),
-                               smooth_nr=args.smooth_nr, smooth_dr=args.smooth_dr)
-        lr = make_epoch_schedule(args.lrschedule, base_lr=args.optim_lr,
-                                 warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs)(1)
-        tree = tree_launches(model)
-        tree["scatter_add_windows"] = 0  # no engine in a train step
         batches = []
         epoch = 0
-        while len(batches) < 1 + steps_timed:
+        while len(batches) < 8:
             loader.set_epoch(epoch)
             batches += list(loader)
             epoch += 1
-    times, losses, per_step = [], [], []
+    model = factory.build_model(args, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  CTUNet params {n_params}, batch {args.batch_size} x 4 crops of "
+        f"{(args.roi_x, args.roi_y, args.roi_z)}, {model.dtype} compute, {args.optim_name}"
+        f"{', ' + ' '.join(extra) if extra else ''}")
+    if n_params != CTUNET_PARAMS + 2 * sum(  # BatchNorm: a weight and a bias a channel
+            m.weight.numel() for m in model.modules() if getattr(m, "kind", "") == "batch"):
+        raise AssertionError(f"CTUNet has {n_params} params, expected {CTUNET_PARAMS} + "
+                             "BatchNorm")
+    step = make_train_step("ctunet", model, factory.build_optimizer(args, model),
+                           smooth_nr=args.smooth_nr, smooth_dr=args.smooth_dr)
+    lr = make_epoch_schedule(args.lrschedule, base_lr=args.optim_lr,
+                             warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs)(1)
+    tree = tree_launches(model, training=True)
+    tree["scatter_add_windows"] = 0  # no engine in a train step
+    return model, step, lr, tree, batches
+
+
+def run_steps(step, lr, tree, batches, device, steps_timed: int):
+    """One warm-up step and ``steps_timed`` timed ones (host clock around
+    each, ending in a synchronize), per-step launches equal to ``tree``, a
+    finite loss at every step, and the peak memory of the timed steps.
+    Returns the statistics and the last batch on the card."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+
+    times, losses, per_step = [], [], {}
     for i, (image, label) in enumerate(batches[:1 + steps_timed]):
         x = torch.from_numpy(image).to(device)
         y = torch.from_numpy(label).to(device)
@@ -1143,14 +1172,30 @@ def phase_train_steps(device, steps_timed: int = 5):
         per_step = counts
     peak = torch.cuda.max_memory_allocated()
     log(f"  timed steps {times!r} s (mean {statistics.mean(times)!r}), peak memory {peak} B")
+    return {"seconds_per_step": times, "mean_s": statistics.mean(times), "losses": losses,
+            "peak_mem_bytes": peak, "launches_per_step": per_step}, (x, y)
+
+
+def phase_train_steps(device, steps_timed: int = 5):
+    """The full-width CTUNet trained on --synthetic data through the port's
+    train step: one warm-up step and ``steps_timed`` timed ones (host clock
+    around each, ending in a synchronize), per-step launches equal to the
+    module tree's for the full five-output forward, a finite loss at every
+    step, and the peak memory of the timed steps; then one more step under
+    ``torch.profiler`` (its kernels by device time)."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    model, step, lr, tree, batches = build_train(device)
+    out, (x, y) = run_steps(step, lr, tree, batches, device, steps_timed)
     prof = bench.profile_device(lambda: step(x, y, lr))
     log(f"  one step under torch.profiler: wall {prof['wall_s']!r} s, kernels "
         f"{prof['kernel_ms']!r} ms, busy {prof['busy_share']!r}")
     log(json.dumps({"train_step_profile": prof}))
     del model, step
     torch.cuda.empty_cache()
-    return {"seconds_per_step": times, "mean_s": statistics.mean(times), "losses": losses,
-            "peak_mem_bytes": peak, "launches_per_step": per_step}
+    return out
 
 
 def phase_train_cli(device, work):
@@ -1369,7 +1414,267 @@ def phase_eval(work, ct_dir, tu_dir):
     finally:
         os.chdir(cwd)
     torch.cuda.empty_cache()
+    out["argv"] = common + final
     return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dropout_masks(record):
+    """Context: every dropout draw also appends to ``record`` the count of
+    its kept values and, for the first 8 draws, its keep mask, both
+    drawn again from a copy of the generator's state (the draw's own mask,
+    not a second one)."""
+    import contextlib
+
+    import torch
+
+    from hybrid_ctunet_tpu_torch.ops import dropout as dropout_ops
+
+    real = dropout_ops.dropout
+
+    def draw(x, rate, generator):
+        copy = torch.Generator(device=x.device)
+        copy.set_state(generator.get_state())
+        mask = torch.rand(x.shape, generator=copy, device=x.device) >= rate
+        record.append((mask.sum(), mask if len(record) < 8 else None))
+        return real(x, rate, generator)
+
+    @contextlib.contextmanager
+    def ctx():
+        dropout_ops.dropout = draw
+        try:
+            yield
+        finally:
+            dropout_ops.dropout = real
+
+    return ctx()
+
+
+def eval_chunk(name, model, device, tree):
+    """One 4-window chunk through ``model``'s res-only forward in eval mode:
+    every kernel call held to its plain version on the model's own
+    activations, launches equal to ``tree``; returns the res logits."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
+    model.eval()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.inference_mode(), per_call_checks() as worst:
+        res = model(x, res_only=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()  # the checked wrappers count while they stand
+    check_launches(f"{name}, eval chunk", counts, [(tree, 1)])
+    log(f"  {name}, eval chunk: per-call rel_l2 vs plain on the model's activations (bound "
+        f"{BF16_REL_L2}): worst {max(worst.values())!r} over {len(worst)} sites")
+    if not torch.isfinite(res.float()).all():
+        raise AssertionError(f"{name}: non-finite res logits")
+    return res
+
+
+def phase_dropout(device, steps_timed: int = 3):
+    """8a. ``--dropout_rate 0.2`` (the paper's CTUNet_ds8_dr0.2): one
+    warm-up and ``steps_timed`` timed steps, finite losses, launches equal to
+    the tree with the dropout sites plain (K2, K3, K4 at none); a step
+    redone at the same (seed, step) draws the same masks, the next step
+    others; in eval mode the model's res logits equal a rate-0 model's with
+    the same weights, bit for bit, on one chunk."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import factory
+
+    model, step, lr, tree, batches = build_train(device, ["--dropout_rate", "0.2"])
+    out, (x, y) = run_steps(step, lr, tree, batches, device, steps_timed)
+    masks = []
+    for k in (step.step, step.step, step.step + 1):
+        step.step = k
+        record = []
+        with dropout_masks(record):
+            step(x, y, lr)
+        masks.append(record)
+    def equal(a, b):
+        return torch.equal(a[0], b[0]) and (a[1] is None or torch.equal(a[1], b[1]))
+
+    same = len(masks[0]) == len(masks[1]) and all(map(equal, masks[0], masks[1]))
+    other = sum(not torch.equal(a[1], b[1]) for a, b in zip(masks[0], masks[2])
+                if a[1] is not None)
+    log(f"  masks: {len(masks[0])} draws a step; the same (seed, step) again: "
+        f"{'identical' if same else 'DIFFERENT'} (kept counts of every draw, the first "
+        f"8 masks); the next step: {other} of the first 8 masks differ; keep fraction of "
+        f"the first draw {masks[0][0][1].float().mean().item()!r}")
+    if not same or other != min(8, len(masks[0])):
+        raise AssertionError("dropout masks are not a function of (seed, step)")
+    del masks, record
+    args = train_args()
+    args.model_name = "ctunet"
+    plain = factory.build_model(args, device)
+    plain.load_state_dict(model.state_dict())
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eval_tree = tree_launches(model, res_only=True)
+        eval_tree["scatter_add_windows"] = 0
+        got = eval_chunk("rate 0.2", model, device, eval_tree)
+        want = eval_chunk("rate 0", plain, device, eval_tree)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if not torch.equal(got, want):
+        raise AssertionError("eval-mode res logits at rate 0.2 differ from rate 0's")
+    log("  eval mode: rate-0.2 res logits equal the rate-0 model's bit for bit")
+    del model, step, plain, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_batchnorm(device, steps_timed: int = 3):
+    """8b. ``--norm_name batch``: one warm-up and ``steps_timed`` timed
+    steps, finite losses, launches equal to the tree (K8 at no BatchNorm
+    site); the running buffers move and stay finite; one step under
+    torch.profiler; an eval-mode chunk with every launched kernel held to its
+    plain version on the model's own activations."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+
+    model, step, lr, tree, batches = build_train(device, ["--norm_name", "batch"])
+    before = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_var")}
+    out, (x, y) = run_steps(step, lr, tree, batches, device, steps_timed)
+    after = model.state_dict()
+    moved = sum(not torch.equal(v, after[k]) for k, v in before.items())
+    finite = all(torch.isfinite(v).all() for k, v in after.items()
+                 if k.endswith(("running_mean", "running_var")))
+    log(f"  running buffers: {moved} of {len(before)} running_var moved, finite {finite}")
+    if moved != len(before) or not finite:
+        raise AssertionError("BatchNorm running buffers did not move or are not finite")
+    prof = bench.profile_device(lambda: step(x, y, lr))
+    log(f"  one step under torch.profiler: wall {prof['wall_s']!r} s, kernels "
+        f"{prof['kernel_ms']!r} ms, busy {prof['busy_share']!r}")
+    log(json.dumps({"batchnorm_step_profile": prof}))
+    eval_tree = tree_launches(model, res_only=True)
+    eval_tree["scatter_add_windows"] = 0
+    eval_chunk("BatchNorm", model, device, eval_tree)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ddp(device, work, eval_argv):
+    """8c. DDP on the one card. One DDP step (NCCL, world 1) from fixed
+    weights against the plain step on the same batch (the CPU test's
+    tolerances: loss rtol 1e-4; each parameter's gradient, which the AdamW
+    step leaves in ``.grad``, to rtol 1e-2 in norm and a relative L2 error
+    of 0.1), its launches
+    equal to the tree; ``train_main --distributed`` for one epoch with
+    validation (checkpoints written once, by rank 0; ``latest.pt``
+    reloads); ``test_final --distributed`` on phase 7's case, whose masks
+    must equal phase 7's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import factory, test_main, train_main
+    from hybrid_ctunet_tpu_torch.data.nifti import load_nifti
+    from hybrid_ctunet_tpu_torch.parallel.dp import make_dp_train_step
+    from hybrid_ctunet_tpu_torch.parallel.mesh import initialize_distributed
+    from hybrid_ctunet_tpu_torch.train.checkpoint import load_weights
+    from hybrid_ctunet_tpu_torch.train.steps import make_train_step
+
+    lr = 1e-4
+    model, step, _, tree, batches = build_train(device)
+    image, label = (torch.from_numpy(a).to(device) for a in batches[0])
+    twin = factory.build_model(train_args(), device)
+    twin.load_state_dict(model.state_dict())
+    initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        dp_step = make_dp_train_step("ctunet", twin, factory.build_optimizer(train_args(), twin))
+        want = step(image, label, lr)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = dp_step(image, label, lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    check_launches("DDP step", counts, [(tree, 1)])
+    worst_ratio, worst_err = 0.0, 0.0
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        if p.grad is None or q.grad is None:
+            if (p.grad is None) != (q.grad is None):
+                raise AssertionError(f"DDP step: {name} has a gradient on one side only")
+            continue
+        scale = p.grad.double().norm().item()
+        worst_ratio = max(worst_ratio, abs(q.grad.double().norm().item() / scale - 1.0))
+        worst_err = max(worst_err, (q.grad.double() - p.grad.double()).norm().item() / scale)
+    log(f"  DDP step (world 1, NCCL): {dt!r} s, loss {got['loss'].item()!r} (plain step "
+        f"{want['loss'].item()!r}); per-parameter gradient against the plain step's: worst "
+        f"norm ratio - 1 {worst_ratio!r} (bound 1e-2), worst relative L2 error {worst_err!r} "
+        f"(bound 0.1)")
+    if not (abs(got["loss"].item() - want["loss"].item()) <= 1e-4 * abs(want["loss"].item())
+            and worst_ratio <= 1e-2 and worst_err <= 0.1):
+        raise AssertionError("the DDP step differs from the plain step")
+    del model, twin, step, dp_step, batches
+    torch.cuda.empty_cache()
+
+    logs = os.path.join(work, "train_ddp")
+    argv = ["--model_depths", "101", "--patch_frame", "8", "--synthetic", "--max_epochs", "1",
+            "--val_every", "1", "--warmup_epochs", "1", "--save_checkpoint", "--distributed",
+            "--dist-url", f"tcp://localhost:{free_port()}",
+            "--data_dir", os.path.join(work, "train_data"), "--logdir", logs]
+    log(f"  train_main {' '.join(argv)}")
+    t0 = time.perf_counter()
+    best = train_main.main("ctunet", argv)
+    cli_wall = time.perf_counter() - t0
+    files = sorted(os.listdir(logs))
+    with open(os.path.join(logs, "scalars.jsonl")) as f:
+        tags = [json.loads(line)["tag"] for line in f]
+    log(f"  {cli_wall!r} s; best {best}; files {files}; scalars {tags}")
+    if "latest.pt" not in files or any(f.endswith(".tmp") for f in files) \
+            or tags.count("train_loss") != 1:
+        raise AssertionError(f"train_main --distributed: files {files}, scalars {tags}")
+    fresh = factory.build_model(train_args(), device)
+    ckpt = load_weights(fresh, os.path.join(logs, "latest.pt"))
+    if ckpt["epoch"] != 1 or not all(torch.isfinite(p).all() for p in fresh.parameters()):
+        raise AssertionError(f"latest.pt: epoch {ckpt['epoch']} or non-finite weights")
+    log(f"  latest.pt loads into a fresh CTUNet (epoch {ckpt['epoch']})")
+    del fresh, ckpt
+    torch.cuda.empty_cache()
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        result = test_main.test_final(eval_argv + [
+            "--distributed", "--dist-url", f"tcp://localhost:{free_port()}",
+            "--exp_name=final_dist"])
+        eval_wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    case = sorted(f for f in os.listdir(os.path.join(work, "outputs", "final"))
+                  if f.endswith(".nii.gz"))[0]
+    mask, _ = load_nifti(os.path.join(work, "outputs", "final_dist", case))
+    want_mask, _ = load_nifti(os.path.join(work, "outputs", "final", case))
+    equal = float((mask == want_mask).mean())
+    log(f"  test_final --distributed: {eval_wall!r} s, mean Dice "
+        f"{float(np.mean(result['dice']))!r}; mask equal to phase 7's on {equal!r} of voxels")
+    if equal != 1.0:
+        raise AssertionError("test_final --distributed gave other masks than phase 7")
+    return {"ddp_step_s": dt, "ddp_step_loss": got["loss"].item(),
+            "ddp_step_grad_worst_norm_ratio": worst_ratio,
+            "ddp_step_grad_worst_rel_l2": worst_err, "launches_per_step": counts,
+            "train_cli_wall_s": cli_wall, "test_final_wall_s": eval_wall}
 
 
 def main() -> int:
@@ -1381,6 +1686,7 @@ def main() -> int:
     from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import bench
 
+    start = time.perf_counter()
     device = torch.device("cuda", 0)
     log("phase 1: device")
     card = bench.device_line()
@@ -1416,6 +1722,16 @@ def main() -> int:
 
     log("phase 7: the eval CLI (cli/test_main.py) on the card")
     ev = phase_eval(work, cli["logs"], os.path.join(work, "tunet"))
+
+    log("phase 8: the remaining training configurations")
+    t8 = time.perf_counter()
+    log("phase 8a: --dropout_rate 0.2")
+    drop = phase_dropout(device)
+    log("phase 8b: --norm_name batch")
+    bn = phase_batchnorm(device)
+    log("phase 8c: --distributed (DDP over NCCL at world 1, sharded eval)")
+    ddp = phase_ddp(device, work, ev.pop("argv"))
+    log(f"  phase 8: {time.perf_counter() - t8!r} s")
     work_dir.cleanup()
 
     entries = []
@@ -1427,6 +1743,9 @@ def main() -> int:
             "train_cli_launches": cli["launches"][info.name],
             "eval_final_launches": ev["test_final"]["launches"][info.name],
             "eval_ctunet_launches": ev["test_ctunet"]["launches"][info.name],
+            "dropout_train_launches_per_step": drop["launches_per_step"][info.name],
+            "batchnorm_train_launches_per_step": bn["launches_per_step"][info.name],
+            "ddp_train_launches_per_step": ddp["launches_per_step"][info.name],
         })
     log(json.dumps({
         "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
@@ -1439,6 +1758,12 @@ def main() -> int:
                   "grad_worst_rel_l2": grads, "cli_wall_s": cli["wall_s"]},
         "eval": {name: {k: v for k, v in run.items() if k != "launches"}
                  for name, run in ev.items()},
+        "train_dropout": {k: drop[k] for k in ("seconds_per_step", "mean_s", "losses",
+                                               "peak_mem_bytes")},
+        "train_batchnorm": {k: bn[k] for k in ("seconds_per_step", "mean_s", "losses",
+                                               "peak_mem_bytes")},
+        "ddp": {k: v for k, v in ddp.items() if k != "launches_per_step"},
+        "wall_s": time.perf_counter() - start,
     }))
     log(card)
     log(json.dumps({"kernels": entries}))

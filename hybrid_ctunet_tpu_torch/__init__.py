@@ -12,8 +12,13 @@ port imports ``torch`` and numpy only, never ``jax`` or ``flax``.
                 kernel on CUDA tensors, differentiable through the plain
                 version (the scatter, used only in inference, excepted).
 - ``models``  — TUNet, ResNet3D, CUNet and CTUNet as ``nn.Module``s with the
-                reference's parameter names.
-- ``infer``   — the sliding-window engine with gaussian blending.
+                reference's parameter names, InstanceNorm or BatchNorm in
+                the conv paths and dropout at the reference's sites.
+- ``infer``   — the sliding-window engine with gaussian blending, its chunks
+                sharded over the ranks of a process group where there is
+                one.
+- ``parallel``— the reference's one-process-per-GPU launch, the DDP train
+                step, metric gathering.
 - ``data``    — NIfTI I/O, the reference's transform chains, the cached
                 dataset and the seeded train loader (numpy).
 - ``train``   — LR schedules, optimizers, the losses and train step,

@@ -7,8 +7,14 @@ Port notes:
 - ``--device``      : ``cuda`` (default) or ``cpu``; without a card the entry
                       points refuse to run unless ``--device cpu`` is given.
 - ``--noamp``       : AMP -> bf16 compute; --noamp selects fp32 compute.
-- ``--distributed``, ``--dropout_rate > 0``, ``--norm_name batch`` and
-  ``--resume_jit`` wait for later work and exit naming the ROADMAP item.
+- ``--distributed`` : one process per GPU (``--device cpu``: one per node,
+                      gloo), the reference's launch (main_C_TUNet.py:104-121);
+                      DDP training with rank-sharded validation, and the
+                      test entries shard the sliding window over the ranks.
+- ``--norm_name``   : ``instance`` (default) or ``batch``, SyncBatchNorm under
+                      ``--distributed`` with more than one process.
+- ``--dropout_rate``: dropout at the reference's sites, active in training.
+- ``--resume_jit``  : exits, as in the JAX package (TorchScript).
 - ``--workers``     : host preprocessing is cached once; kept for
                       compatibility.
 """

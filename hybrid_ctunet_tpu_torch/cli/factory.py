@@ -3,8 +3,8 @@ model-select and optimizer blocks of the reference mains,
 main_C_TUNet.py:132-219, main_CTUNet.py:128-208). Port of
 ``hybrid_ctunet_tpu/cli/factory.py``.
 
-A flag whose feature the port does not have yet exits with a message naming
-the ROADMAP item, never silently ignored.
+A flag the port refuses (``--resume_jit``, as the JAX package does) exits
+with a message, never silently ignored.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import os
 import torch
 
 from ..models import CTUNet, CUNet, TUNet
+from ..models.layers import convert_sync_batchnorm
 from ..train.checkpoint import load_weights
 from ..train.state import make_optimizer
 from ..utils.params import random_init_
@@ -20,20 +21,14 @@ from ..utils.params import random_init_
 SEED = 0  # random initial weights (the JAX package inits from PRNGKey(0))
 
 
-def check_supported(args, *, training: bool = True) -> None:
-    """Exit on the flags whose feature waits for a later port PR, or that
-    the JAX package refuses too (``--resume_jit``). Evaluation
-    (``training=False``) takes ``--dropout_rate > 0``: the model runs in
-    eval mode, where dropout is the identity."""
-    if training and args.dropout_rate > 0:
-        raise SystemExit("--dropout_rate > 0: dropout is not ported yet (ROADMAP A12)")
-    if args.norm_name == "batch":
-        raise SystemExit("--norm_name batch: BatchNorm is not ported yet (ROADMAP A13)")
-    if args.norm_name != "instance":
+def check_supported(args) -> None:
+    """Exit on the flags the port refuses: a ``--norm_name`` other than
+    ``instance`` and ``batch``, and ``--resume_jit``, which the JAX package
+    refuses too."""
+    if args.norm_name not in ("instance", "batch"):
         raise SystemExit(f"--norm_name {args.norm_name!r} is not supported: 'instance' (the "
-                         "reference default) is implemented, 'batch' waits for ROADMAP A13")
-    if args.distributed:
-        raise SystemExit("--distributed: multi-GPU training is not ported yet (ROADMAP A10)")
+                         "reference default) and 'batch' (BatchNorm3d; SyncBatchNorm under "
+                         "--distributed, reference main_C_TUNet.py:193-194) are implemented")
     if args.resume_jit:
         raise SystemExit("--resume_jit loads a TorchScript module (reference "
                          "main_C_TUNet.py:159), which the JAX package refuses too. Use a "
@@ -68,14 +63,19 @@ def model_dtype(args):
 
 def build_model(args, device) -> torch.nn.Module:
     """The model of ``args.model_name`` on ``device``, random weights from
-    SEED."""
+    SEED, with ``--dropout_rate`` (the ViT-side sites; CUNet has none, as
+    in the JAX package) and ``--norm_name``; under ``--distributed`` with a
+    world of more than one process BatchNorm's moments are synced over it
+    (SyncBatchNorm, reference main_C_TUNet.py:193-194; the JAX
+    ``"batch:data"``)."""
     name = args.model_name
     common = dict(out_channels=args.out_channels, in_channels=args.in_channels,
-                  dtype=model_dtype(args), device=device)
+                  norm_name=args.norm_name, dtype=model_dtype(args), device=device)
     vit_kw = dict(img_size=(args.roi_x, args.roi_y), frames=args.roi_z,
                   patch_frame=args.patch_frame, hidden_size=args.hidden_size,
                   num_depths=args.num_depths, mlp_dim=args.mlp_dim, num_heads=args.num_heads,
-                  dim_conv_stem=args.feature_size, window=args.window)
+                  dim_conv_stem=args.feature_size, window=args.window,
+                  dropout_rate=args.dropout_rate)
     if name == "cunet":
         model = CUNet(model_depth=args.model_depths, **common)
     elif name == "tunet":
@@ -84,6 +84,8 @@ def build_model(args, device) -> torch.nn.Module:
         model = CTUNet(model_depth=args.model_depths, **vit_kw, **common)
     else:
         raise ValueError(f"Unsupported model_name: {name!r} (cunet | tunet | ctunet)")
+    if args.distributed and args.world_size > 1:
+        convert_sync_batchnorm(model)
     return random_init_(model, SEED)
 
 

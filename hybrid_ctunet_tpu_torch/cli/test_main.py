@@ -1,6 +1,5 @@
 """Evaluation entry points (reference test_C_TUNet.py / test_CTUNet.py /
-test_CTUNet_final.py) on one device. Port of
-``hybrid_ctunet_tpu/cli/test_main.py``.
+test_CTUNet_final.py). Port of ``hybrid_ctunet_tpu/cli/test_main.py``.
 
     python -m hybrid_ctunet_tpu_torch.cli.test_main final --data_dir DIR \\
         --json_list dataset_0.json --ctunet_dir DIR --tunet_dir DIR \\
@@ -18,6 +17,12 @@ softmax-mean, test_CTUNet_final.py:539-552), HD95, and optional nnU-Net
 largest-CC postprocessing (:654-656). Each model runs in eval mode under
 ``torch.inference_mode()``, on the card unless ``--device cpu`` is given.
 Checkpoints are reference-format ``.pt`` files (``factory.load_eval_weights``).
+
+``--distributed`` spawns one process per GPU (``parallel.mesh.launch``) and
+shards every sliding window's chunks over them (the JAX ``_eval_mesh``,
+``cli/test_main.py:98-110``): each rank blends its chunks into its own
+canvas, one all-reduce sums them; rank 0 alone inverts, scores and writes
+the outputs, and returns the result.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from ..data.nifti import save_nifti
 from ..data.transforms import invert_to_native
 from ..eval import com_dice, com_hd, determine_postprocessing, per_organ_dice, write_dice_report
 from ..infer.sliding_window import SlidingWindowEngine
+from ..parallel.mesh import is_main_process, launch, rank_and_world
 from .args import build_test_parser
 from .factory import build_model, check_supported, load_eval_weights, select_device
 
@@ -112,9 +118,11 @@ def _windows(x, model):
 
 
 def _engine(predictor, args, overlap=None, num_outputs=1):
+    rank, world = rank_and_world()
     return SlidingWindowEngine(
         predictor, (args.roi_x, args.roi_y, args.roi_z), sw_batch_size=4,
         overlap=args.infer_overlap if overlap is None else overlap, num_outputs=num_outputs,
+        rank=rank, world=world,
     )
 
 
@@ -145,19 +153,36 @@ def _load(args, device, model_name, path):
     return model.eval()
 
 
-def _setup(args):
+def _run(entry, args):
+    """``entry(args)`` here, or in every rank under ``--distributed``
+    (rank 0's result)."""
     args.test_mode = True
-    check_supported(args, training=False)
+    check_supported(args)
+    select_device(args)
+    return launch(entry, args) if args.distributed else entry(args)
+
+
+def _setup(args):
     device = select_device(args)
     _, val_cases = get_loader(args)
     out_dir = os.path.join("./outputs", args.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
+    if is_main_process():
+        os.makedirs(out_dir, exist_ok=True)
     return device, val_cases, out_dir
+
+
+def _only_main(finish):
+    """``finish`` on rank 0; the other ranks' part of a case ends with its
+    windows."""
+    return finish if is_main_process() else (lambda case, handle: None)
 
 
 def test_single(argv=None):
     """test_C_TUNet.py: evaluate one CUNet or TUNet checkpoint."""
-    args = build_test_parser("c_tunet").parse_args(argv)
+    return _run(_test_single, build_test_parser("c_tunet").parse_args(argv))
+
+
+def _test_single(args):
     device, val_cases, out_dir = _setup(args)
     model = _load(args, device, args.model_name,
                   os.path.join(args.pretrained_dir, args.pretrained_model_name))
@@ -172,7 +197,9 @@ def test_single(argv=None):
                    pred.astype(np.uint8), case.meta.affine)
         return case.name, d
 
-    out = _pipeline_cases(val_cases, lambda c: _dispatch(engine, model, c), finish)
+    out = _pipeline_cases(val_cases, lambda c: _dispatch(engine, model, c), _only_main(finish))
+    if not is_main_process():
+        return None
     names, rows = [n for n, _ in out], [d for _, d in out]
     write_dice_report(out_dir, names, rows)
     print("Overall Mean Dice: {}".format(float(np.mean(rows))))
@@ -183,7 +210,10 @@ def test_ctunet(argv=None):
     """test_CTUNet.py: three-checkpoint evaluation — pass 1 ensembles the res
     head of model_res.pt with the vit head of model_vit.pt; pass 2 ensembles
     both heads of model_hybrid.pt (test_CTUNet.py:228-241, 340-391)."""
-    args = build_test_parser("ctunet").parse_args(argv)
+    return _run(_test_ctunet, build_test_parser("ctunet").parse_args(argv))
+
+
+def _test_ctunet(args):
     device, val_cases, out_dir = _setup(args)
     m_res, m_vit, m_hyb = (_load(args, device, "ctunet", os.path.join(args.pretrained_dir, f))
                            for f in ("model_res.pt", "model_vit.pt", "model_hybrid.pt"))
@@ -207,12 +237,14 @@ def test_ctunet(argv=None):
                        pred.astype(np.uint8), case.meta.affine)
             return case.name, d
 
-        out = _pipeline_cases(val_cases, dispatch, finish)
+        out = _pipeline_cases(val_cases, dispatch, _only_main(finish))
+        if not is_main_process():
+            continue
         names, rows = [n for n, _ in out], [d for _, d in out]
         write_dice_report(out_dir, names, rows, filename=f"dice_{tag}.txt")
         print(f"[{tag}] Overall Mean Dice: {float(np.mean(rows))}")
         results[tag] = np.asarray(rows)
-    return results
+    return results if is_main_process() else None
 
 
 def test_final(argv=None):
@@ -224,7 +256,10 @@ def test_final(argv=None):
                         help="CTUNet checkpoint dir (reference hardcoded path)")
     parser.add_argument("--tunet_dir", default="./runs/TUNet_pf8", type=str,
                         help="independent TUNet checkpoint dir")
-    args = parser.parse_args(argv)
+    return _run(_test_final, parser.parse_args(argv))
+
+
+def _test_final(args):
     device, val_cases, out_dir = _setup(args)
     ctunet = _load(args, device, "ctunet", os.path.join(args.ctunet_dir, "model_res.pt"))
     tunet = _load(args, device, "tunet", os.path.join(args.tunet_dir, "model_vit.pt"))
@@ -253,8 +288,10 @@ def test_final(argv=None):
     out = _pipeline_cases(
         val_cases,
         lambda c: (_dispatch(eng_ct, ctunet, c), _dispatch(eng_tu, tunet, c)),
-        finish,
+        _only_main(finish),
     )
+    if not is_main_process():
+        return None
     infers = [r[0] for r in out]
     labels = [r[1] for r in out]
     names = [r[2] for r in out]

@@ -1,9 +1,10 @@
-"""In-RAM cached dataset and the train batch loader. Port of
-``hybrid_ctunet_tpu/data/dataset.py`` (numpy only) without ``ShardSampler``,
-which comes with multi-GPU training (ROADMAP A10).
+"""In-RAM cached dataset, the rank sampler and the train batch loader. Port
+of ``hybrid_ctunet_tpu/data/dataset.py`` (numpy only).
 
 - CacheDataset(cache_num=24, cache_rate=1.0) caching the deterministic
   transform chain (data_utils.py:192-194) -> :class:`CachedDataset`;
+- the reference's distributed ``Sampler`` (data_utils.py:22-66) ->
+  :class:`ShardSampler`;
 - the train DataLoader contract (batch of cases x num_samples crops,
   channels-last arrays) -> :class:`TrainLoader`.
 """
@@ -54,22 +55,62 @@ class CachedDataset:
         return self._load(idx)
 
 
+class ShardSampler:
+    """Reference Sampler semantics (data_utils.py:22-66): even shards by
+    padding, an epoch-seeded permutation, and ``valid_length``, the count of
+    this rank's samples that are not padding (a copy of the JAX package's
+    ``data/dataset.py:68-100``)."""
+
+    def __init__(self, n: int, num_replicas: int, rank: int, *, shuffle: bool = True,
+                 make_even: bool = True):
+        self.n = n
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.make_even = make_even
+        self.num_samples = int(math.ceil(n / num_replicas))
+        self.total_size = self.num_samples * num_replicas
+        self.valid_length = len(range(rank, min(self.total_size, n), num_replicas))
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def indices(self) -> List[int]:
+        if self.shuffle:
+            g = np.random.default_rng(self.epoch)
+            idx = g.permutation(self.n).tolist()
+        else:
+            idx = list(range(self.n))
+        if self.make_even and len(idx) < self.total_size:
+            extra = self.total_size - len(idx)
+            if extra < len(idx):
+                idx += idx[:extra]
+            else:
+                g = np.random.default_rng(self.epoch + 1)
+                idx += [idx[int(i)] for i in g.integers(0, len(idx), extra)]
+        return idx[self.rank : self.total_size : self.num_replicas]
+
+
 class TrainLoader:
     """Yields channels-last train batches (image (B*S, X, Y, Z, 1), label
     (B*S, X, Y, Z, 1)), S = ``num_samples`` crops per case — the reference's
     effective batch (batch_size x RandCropByPosNegLabel num_samples=4,
     data_utils.py:84-93). Every random draw comes from
-    ``default_rng((seed, epoch))`` (case order) and
+    ``default_rng((seed, epoch))`` (case order; with a ``sampler``, its
+    rank's shard in its order instead) and
     ``default_rng((seed, epoch, case, batch))`` (crops and augmentations), so
     the JAX package's loader yields the same batches."""
 
     def __init__(self, dataset: CachedDataset, *, batch_size: int = 1,
                  roi_size: Tuple[int, int, int] = (96, 96, 96), num_samples: int = 4,
-                 seed: int = 0, aug_cfg: Optional[dict] = None, prefetch: int = 2):
+                 sampler: Optional[ShardSampler] = None, seed: int = 0,
+                 aug_cfg: Optional[dict] = None, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.roi_size = roi_size
         self.num_samples = num_samples
+        self.sampler = sampler
         self.seed = seed
         self.aug_cfg = aug_cfg or {}
         self.epoch = 0
@@ -79,13 +120,19 @@ class TrainLoader:
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+        if self.sampler is not None:
+            self.sampler.set_epoch(epoch)
 
     def __len__(self):
-        return math.ceil(len(self.dataset) / self.batch_size)
+        n = self.sampler.num_samples if self.sampler else len(self.dataset)
+        return math.ceil(n / self.batch_size)
 
     def _batches(self):
-        rng_perm = np.random.default_rng((self.seed, self.epoch))
-        idx = [int(i) for i in rng_perm.permutation(len(self.dataset))]
+        if self.sampler is not None:
+            idx = self.sampler.indices()
+        else:
+            rng_perm = np.random.default_rng((self.seed, self.epoch))
+            idx = [int(i) for i in rng_perm.permutation(len(self.dataset))]
         for b in range(0, len(idx), self.batch_size):
             imgs, labs = [], []
             for case_idx in idx[b : b + self.batch_size]:

@@ -1,6 +1,6 @@
 """get_loader: the train/val data pipeline from an args namespace
 (reference utils/data_utils.py:69-219). Port of
-``hybrid_ctunet_tpu/data/loader.py`` for one process.
+``hybrid_ctunet_tpu/data/loader.py``.
 
 Returns ``(train_loader, val_cases)``: ``train_loader`` yields channels-last
 crop batches, ``val_cases`` are whole preprocessed volumes with native-grid
@@ -14,14 +14,17 @@ from __future__ import annotations
 import os
 
 from .datalist import load_decathlon_datalist
-from .dataset import CachedDataset, TrainLoader
+from .dataset import CachedDataset, ShardSampler, TrainLoader
 
 
-def get_loader(args):
+def get_loader(args, *, num_replicas: int = 1, rank: int = 0):
     """args needs: data_dir, json_list, batch_size, roi_x/y/z, space_x/y/z,
     a_min/a_max/b_min/b_max, the four Rand*_prob, use_normal_dataset. With
     ``args.test_mode`` only the validation cases are built: ``(None,
-    val_cases)``, no training file read."""
+    val_cases)``, no training file read. Under ``args.distributed`` (or
+    more than one replica) the train cases are sharded over the ranks by a
+    :class:`ShardSampler`; every rank keeps every validation case (the
+    sliding window shards their windows instead)."""
     from ..train.trainer import ValCase
 
     json_path = os.path.join(args.data_dir, args.json_list)
@@ -53,6 +56,9 @@ def get_loader(args):
         RandScaleIntensityd_prob=args.RandScaleIntensityd_prob,
         RandShiftIntensityd_prob=args.RandShiftIntensityd_prob,
     )
+    sampler = None
+    if getattr(args, "distributed", False) or num_replicas > 1:
+        sampler = ShardSampler(len(train_ds), num_replicas, rank, shuffle=True, make_even=True)
     train_loader = TrainLoader(train_ds, batch_size=args.batch_size, roi_size=roi,
-                               num_samples=4, aug_cfg=aug_cfg)
+                               num_samples=4, sampler=sampler, aug_cfg=aug_cfg)
     return train_loader, val_cases

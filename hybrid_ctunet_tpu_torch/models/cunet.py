@@ -19,14 +19,15 @@ DIMS = (128, 256, 512, 1024)
 
 class CUNet(nn.Module):
     def __init__(self, out_channels: int = 14, model_depth: int = 101, in_channels: int = 1,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.convnet = ResNet3D(model_depth, DS_STRIDE, in_channels=in_channels, **kw)
-        self.res_decoder3 = UpCatConvBlock(DIMS[3], DIMS[2], DS_STRIDE[3], **kw)
-        self.res_decoder2 = UpCatConvBlock(DIMS[2], DIMS[1], DS_STRIDE[2], **kw)
-        self.res_decoder1 = UpCatConvBlock(DIMS[1], DIMS[0], DS_STRIDE[1], **kw)
-        self.res_decoder0 = UpConvBlock(DIMS[0], 64, DS_STRIDE[0], **kw)
+        nkw = dict(norm_name=norm_name, **kw)
+        self.convnet = ResNet3D(model_depth, DS_STRIDE, in_channels=in_channels, **nkw)
+        self.res_decoder3 = UpCatConvBlock(DIMS[3], DIMS[2], DS_STRIDE[3], **nkw)
+        self.res_decoder2 = UpCatConvBlock(DIMS[2], DIMS[1], DS_STRIDE[2], **nkw)
+        self.res_decoder1 = UpCatConvBlock(DIMS[1], DIMS[0], DS_STRIDE[1], **nkw)
+        self.res_decoder0 = UpConvBlock(DIMS[0], 64, DS_STRIDE[0], **nkw)
         self.res_out = UnetOutHead(64, out_channels, **kw)
         self.res_out_48x48 = UnetOutHead(DIMS[0], out_channels, **kw)
         self.res_out_24x24 = UnetOutHead(DIMS[1], out_channels, **kw)

@@ -10,6 +10,9 @@ the 5-level pyramid [hidden, 512, 256, 128, 64].
 Keys follow the reference's Sequentials: ``layers.{ind}.0.{1,2,5,6}.fn``
 and ``.8`` for stages 0-2, ``layers.3.0.{1,2}.fn`` and ``.4`` for stage 3;
 the other indices are the reference's Rearranges (``nn.Identity`` here).
+``dropout`` reaches every attention and FFN; with it active (train mode)
+stage 3 runs its two FFNs unfused, as the JAX package's pair is fused only
+when ``dr == 0 or deterministic`` (``decoder_attention.py:71-76``).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from .layers import FeedForward, MultiAxisWindowAttention, PixelShuffleLinear, R
 class UpAttentionBlock(nn.Module):
     def __init__(self, in_channels: int = 768, dims: Sequence[int] = (128, 256, 512, 1024),
                  ds_stride: Sequence[Tuple[int, int, int]] = ((2, 2, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2)),
-                 window: int = 6, dtype=torch.float32, device=None):
+                 window: int = 6, dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         # (in_channels, *dims[::-1][1:], 64): (768, 512, 256, 128, 64)
@@ -35,10 +38,11 @@ class UpAttentionBlock(nn.Module):
         stages = []
         for ind, (dim_in, dim_out) in enumerate(zip(chain[:-1], chain[1:])):
             shuffle = PixelShuffleLinear(dim_in, factors[ind], dim_out, **kw)
-            ff = lambda: Residual(FeedForward(dim_in, 4 * dim_in, residual=True, **kw))
+            ff = lambda: Residual(FeedForward(dim_in, 4 * dim_in, residual=True, dropout=dropout,
+                                              **kw))
             if ind <= 2:
                 attn = lambda grid: Residual(
-                    MultiAxisWindowAttention(dim_in, window, grid=grid, **kw))
+                    MultiAxisWindowAttention(dim_in, window, grid=grid, dropout=dropout, **kw))
                 seq = nn.Sequential(
                     nn.Identity(), attn(False), ff(), nn.Identity(),
                     nn.Identity(), attn(True), ff(), nn.Identity(), shuffle,
@@ -62,7 +66,8 @@ class UpAttentionBlock(nn.Module):
             else:
                 ff1, ff2 = seq[1].fn, seq[2].fn
                 p1, p2 = ff1.params(), ff2.params()
-                if ffn_ops.pair_supports(x.shape[-1], p1[2].shape[0], self.dtype):
+                if not ff1.dropping() and ffn_ops.pair_supports(x.shape[-1], p1[2].shape[0],
+                                                                self.dtype):
                     x = ffn_ops.ffn_pair(x, p1, p2, self.dtype)
                 else:
                     x = ff2(ff1(x))

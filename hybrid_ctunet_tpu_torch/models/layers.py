@@ -8,6 +8,12 @@ Params are fp32; ``dtype`` is the compute dtype each op casts them to, as
 the JAX modules do (``w.astype(self.dtype)``). Parameters are created empty
 on ``device``; ``utils.params.random_init_`` or ``load_state_dict`` fills
 them.
+
+Dropout (``dropout`` > 0) sits where the JAX package puts it. A site drops
+only in train mode; there it takes its plain version with the masks applied
+where JAX applies them, and elsewhere its kernel as without dropout, so no
+kernel takes a mask. The masks come from the generator that
+:func:`set_dropout_generator` gives the model's :class:`Dropout` modules.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops import attention as attention_ops
+from ..ops import dropout as dropout_ops
 from ..ops import ffn as ffn_ops
 from ..ops import norm as norm_ops
 from ..ops import pixelweight as pixelweight_ops
@@ -38,6 +45,85 @@ def instance_norm_act(x: torch.Tensor, act: bool = False) -> torch.Tensor:
         return norm_ops.instance_norm_leaky(x) if act else norm_ops.instance_norm(x)
     y = norm_ops.reference_instance_norm(x)
     return leaky_relu(y) if act else y
+
+
+class Dropout(nn.Module):
+    """One dropout site: active when ``rate`` > 0 in train mode, the
+    identity otherwise. Draws from ``generator`` (set by
+    :func:`set_dropout_generator`); owns no state-dict entry."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def active(self) -> bool:
+        return self.rate > 0.0 and self.training
+
+    def forward(self, x):
+        if not self.active():
+            return x
+        if self.generator is None and self.rate < 1.0:
+            raise RuntimeError("dropout is active and no generator is set: call "
+                               "models.layers.set_dropout_generator(model, generator)")
+        return dropout_ops.dropout(x, self.rate, self.generator)
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Every dropout site of ``model`` draws from ``generator`` (a
+    ``torch.Generator`` on the model's device)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class ConvNorm(nn.Module):
+    """The norm after a conv, ``--norm_name`` (the JAX ``apply_norm``,
+    ``models/layers.py:52``), + LeakyReLU 0.01 when ``act``.
+
+    ``"instance"``: affine-free InstanceNorm (K8 where its gate takes the
+    tensor); owns nothing, so the state dict is the reference's default.
+    ``"batch"``: BatchNorm3d with eps 1e-5, momentum 0.1, an affine
+    (``weight``, ``bias``) and the buffers ``running_mean``, ``running_var``
+    and ``num_batches_tracked``; plain PyTorch (``ops.norm.batch_norm``).
+    Under a process group of more than one rank,
+    :func:`convert_sync_batchnorm` sets ``sync``: the moments are then
+    summed over the group first (SyncBatchNorm, the JAX ``"batch:data"``)."""
+
+    def __init__(self, channels: int, norm_name: str = "instance", act: bool = False,
+                 device=None):
+        super().__init__()
+        if norm_name not in ("instance", "batch"):
+            raise ValueError(f"unsupported norm {norm_name!r}: expected 'instance' or 'batch'")
+        self.kind, self.sync, self.act = norm_name, False, act
+        if norm_name == "batch":
+            f32 = dict(dtype=torch.float32, device=device)
+            self.weight = nn.Parameter(torch.ones(channels, **f32))
+            self.bias = nn.Parameter(torch.zeros(channels, **f32))
+            self.register_buffer("running_mean", torch.zeros(channels, **f32))
+            self.register_buffer("running_var", torch.ones(channels, **f32))
+            self.register_buffer("num_batches_tracked",
+                                 torch.zeros((), dtype=torch.long, device=device))
+
+    def forward(self, x):
+        if self.kind == "instance":
+            return instance_norm_act(x, self.act)
+        y = norm_ops.batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                training=self.training, sync=self.sync)
+        if self.training:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+        return leaky_relu(y) if self.act else y
+
+
+def convert_sync_batchnorm(model: nn.Module) -> nn.Module:
+    """Every BatchNorm of ``model`` syncs its moments over the process group
+    (the reference's ``nn.SyncBatchNorm.convert_sync_batchnorm``,
+    main_C_TUNet.py:193-194); instance norms are left as they are."""
+    for m in model.modules():
+        if isinstance(m, ConvNorm) and m.kind == "batch":
+            m.sync = True
+    return model
 
 
 class Dense(nn.Module):
@@ -114,11 +200,11 @@ class FeedForward(nn.Module):
     """LN -> Linear(mult*dim) -> GELU -> Linear(dim), optionally residual
     (reference FeedForward, hybrid_CTUNet.py:513-526 / vit.py:31-44).
     ``net`` indices follow the reference's Sequential: 0 LayerNorm, 1 Linear,
-    2 GELU, 3 Dropout, 4 Linear. In bf16 with hidden <= 1024 it goes
-    through ops.ffn (the fused kernel for CUDA tensors), elsewhere the plain
-    version."""
+    2 GELU, 3 Dropout, 4 Linear, 5 Dropout. In bf16 with hidden <= 1024 it
+    goes through ops.ffn (the fused kernel for CUDA tensors), elsewhere, and
+    wherever dropout is active, the plain version."""
 
-    def __init__(self, dim: int, hidden: int, residual: bool = False,
+    def __init__(self, dim: int, hidden: int, residual: bool = False, dropout: float = 0.0,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
@@ -127,8 +213,9 @@ class FeedForward(nn.Module):
             LayerNorm(dim, device=device),
             Dense(dim, hidden, dtype=dtype, device=device),
             nn.GELU(),
-            nn.Identity(),
+            Dropout(dropout),
             Dense(hidden, dim, dtype=dtype, device=device),
+            Dropout(dropout),
         )
 
     def params(self) -> Tuple[torch.Tensor, ...]:
@@ -136,11 +223,19 @@ class FeedForward(nn.Module):
         n = self.net
         return (n[0].weight, n[0].bias, n[1].weight, n[1].bias, n[4].weight, n[4].bias)
 
+    def dropping(self) -> bool:
+        return self.net[3].active()
+
     def forward(self, x):
         p = self.params()
-        if ffn_ops.supports(x.shape[-1], p[2].shape[0], self.dtype):
+        if self.dropping():
+            # JAX models/layers.py:287-299: after GELU and after fc2
+            out = ffn_ops.reference_ffn(x, *p, self.dtype, hidden_dropout=self.net[3],
+                                        out_dropout=self.net[5])
+        elif ffn_ops.supports(x.shape[-1], p[2].shape[0], self.dtype):
             return ffn_ops.ffn(x, *p, self.dtype, residual=self.residual)
-        out = ffn_ops.reference_ffn(x, *p, self.dtype)
+        else:
+            out = ffn_ops.reference_ffn(x, *p, self.dtype)
         return x + out if self.residual else out
 
 
@@ -169,17 +264,20 @@ class MultiAxisWindowAttention(nn.Module):
     ``grid=True``: grid attention across windows at a fixed intra-window
     offset (the reference's '(h1 h)' rearrange). The partition is plain
     reshape/permute; the attention core is ops.attention (a kernel on CUDA
-    in bf16)."""
+    in bf16). With dropout active the core is the plain version with the
+    mask on the softmaxed scores, and ``to_out`` drops too."""
 
     def __init__(self, dim: int, window: int = 6, grid: bool = False, dim_head: int = 32,
-                 dtype=torch.float32, device=None):
+                 dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.window, self.grid, self.dim_head, self.dtype = window, grid, dim_head, dtype
         self.heads = dim // dim_head
         self.norm = LayerNorm(dim, device=device)
         self.to_qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
         self.rel_pos_bias = _Table((2 * window - 1) ** 3, self.heads, device=device)
-        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device))
+        self.drop_attn = Dropout(dropout)
+        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device),
+                                    Dropout(dropout))
 
     def forward(self, x):
         B, X, Y, Z, C = x.shape
@@ -199,7 +297,10 @@ class MultiAxisWindowAttention(nn.Module):
         q, k, v = qkv.split(C, dim=-1)
         q = q * self.dim_head ** -0.5
         table = self.rel_pos_bias.weight  # ((2w-1)^3, heads), gathered by the op
-        if attention_ops.supports(T, C, self.heads, self.dtype):
+        if self.drop_attn.active():  # JAX models/layers.py:396-407
+            out = attention_ops.reference_window_attention_table(
+                q, k, v, table, w, self.dtype, attn_dropout=self.drop_attn)
+        elif attention_ops.supports(T, C, self.heads, self.dtype):
             out = attention_ops.window_attention(q, k, v, table, w, self.dtype)
         else:
             out = attention_ops.reference_window_attention_table(q, k, v, table, w, self.dtype)
@@ -237,27 +338,31 @@ class PixelShuffleLinear(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """2-conv residual block with InstanceNorm/LeakyReLU(0.01) and a 1x1x1
-    projection shortcut when the shape changes (reference
+    """2-conv residual block with a norm (``norm_name``) and LeakyReLU(0.01),
+    and a 1x1x1 projection shortcut when the shape changes (reference
     hybrid_CTUNet.py:29-105). ``forward(x, skip)`` runs on
     ``cat([x, skip], -1)``. The reference's conv3, dead when in == out and
-    stride 1, is not built."""
+    stride 1, is not built. Norms ``norm1``, ``norm2``, ``norm3`` (the JAX
+    names)."""
 
     def __init__(self, cin: int, features: int, kernel_size=3, stride=1,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         self.needs_proj = cin != features or any(s != 1 for s in _triple(stride))
         self.conv1 = Conv3d(cin, features, kernel_size, stride, dtype=dtype, device=device)
+        self.norm1 = ConvNorm(features, norm_name, act=True, device=device)
         self.conv2 = Conv3d(features, features, kernel_size, 1, dtype=dtype, device=device)
+        self.norm2 = ConvNorm(features, norm_name, device=device)
         if self.needs_proj:
             self.conv3 = Conv3d(cin, features, 1, stride, dtype=dtype, device=device)
+            self.norm3 = ConvNorm(features, norm_name, device=device)
 
     def forward(self, x, skip=None):
         if skip is not None:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-        out = instance_norm_act(self.conv1(x), act=True)
-        out = instance_norm_act(self.conv2(out))
-        residual = instance_norm_act(self.conv3(x)) if self.needs_proj else x
+        out = self.norm1(self.conv1(x))
+        out = self.norm2(self.conv2(out))
+        residual = self.norm3(self.conv3(x)) if self.needs_proj else x
         return leaky_relu(out + residual)
 
 
@@ -283,21 +388,31 @@ class PixelweightFusion(nn.Module):
     """Binary cross-weight attention fusing two same-shape streams (reference
     pixelweight_attention, hybrid_CTUNet.py:622-669). Keys ``norm1``,
     ``norm2``, ``to_qkv1``, ``to_qkv2``, ``to_out.0``, all projections
-    bias-free. In bf16 it runs ops.pixelweight (K7 on CUDA tensors)."""
+    bias-free. In bf16 it runs ops.pixelweight (K7 on CUDA tensors). With
+    dropout active (JAX ``models/layers.py:564-575``) the plain version
+    drops the 2-way weights and the output; no CTUNet caller sets a rate,
+    as in the reference."""
 
-    def __init__(self, dim: int, dim_head: int = 32, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, dim_head: int = 32, dropout: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.dim_head, self.dtype = dim_head, dtype
         self.norm1 = LayerNorm(dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
         self.to_qkv1 = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
         self.to_qkv2 = Dense(dim, 3 * dim, bias=False, dtype=dtype, device=device)
-        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device))
+        self.drop_attn = Dropout(dropout)
+        self.to_out = nn.Sequential(Dense(dim, dim, bias=False, dtype=dtype, device=device),
+                                    Dropout(dropout))
 
     def forward(self, x1, x2):
         p = (self.norm1.weight, self.norm1.bias, self.norm2.weight, self.norm2.bias,
              self.to_qkv1.weight, self.to_qkv2.weight, self.to_out[0].weight)
         x1, x2 = x1.to(self.dtype), x2.to(self.dtype)
+        if self.drop_attn.active():
+            return pixelweight_ops.reference_pixelweight(
+                x1, x2, p, self.dtype, self.dim_head, attn_dropout=self.drop_attn,
+                out_dropout=self.to_out[1])
         if pixelweight_ops.supports(x1.shape[-1], self.dtype, self.dim_head):
             return pixelweight_ops.pixelweight(x1, x2, p, self.dtype, self.dim_head)
         return pixelweight_ops.reference_pixelweight(x1, x2, p, self.dtype, self.dim_head)
@@ -308,12 +423,12 @@ class UpCatConvBlock(nn.Module):
     UpCatConvBlock, hybrid_CTUNet.py:148-201)."""
 
     def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         s = _triple(upsample_stride)
         self.transp_conv = ConvTranspose3d(cin, features, s, s, dtype=dtype, device=device)
-        self.conv_block = ResBlock(2 * features, features, kernel_size, 1, dtype=dtype,
-                                   device=device)
+        self.conv_block = ResBlock(2 * features, features, kernel_size, 1, norm_name,
+                                   dtype=dtype, device=device)
 
     def forward(self, x, skip):
         return self.conv_block(self.transp_conv(x), skip)
@@ -324,12 +439,12 @@ class UpConvBlock(nn.Module):
     hybrid_CTUNet.py:203-255)."""
 
     def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         s = _triple(upsample_stride)
         self.transp_conv = ConvTranspose3d(cin, features, s, s, dtype=dtype, device=device)
-        self.conv_block = ResBlock(features, features, kernel_size, 1, dtype=dtype,
-                                   device=device)
+        self.conv_block = ResBlock(features, features, kernel_size, 1, norm_name,
+                                   dtype=dtype, device=device)
 
     def forward(self, x):
         return self.conv_block(self.transp_conv(x))
@@ -341,15 +456,15 @@ class Up2FusionBlock(nn.Module):
     ResBlock; transposed conv of x; pixelweight-fuse(that, skip) -> ResBlock."""
 
     def __init__(self, cin: int, features: int, upsample_stride, kernel_size: int = 3,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         s = _triple(upsample_stride)
         kw = dict(dtype=dtype, device=device)
         self.pixelweight_attention1 = PixelweightFusion(features, **kw)
-        self.up_addconv_block1 = ResBlock(features, features, kernel_size, 1, **kw)
+        self.up_addconv_block1 = ResBlock(features, features, kernel_size, 1, norm_name, **kw)
         self.transp_conv = ConvTranspose3d(cin, features, s, s, **kw)
         self.pixelweight_attention2 = PixelweightFusion(features, **kw)
-        self.up_addconv_block2 = ResBlock(features, features, kernel_size, 1, **kw)
+        self.up_addconv_block2 = ResBlock(features, features, kernel_size, 1, norm_name, **kw)
 
     def forward(self, x, skip_conv, skip_vit):
         skip = self.up_addconv_block1(self.pixelweight_attention1(skip_conv, skip_vit))
@@ -361,9 +476,10 @@ class CatConvBlock(nn.Module):
     """concat(x, skip) -> ResBlock (reference hybrid_CTUNet.py:593-620)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3,
-                 dtype=torch.float32, device=None):
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
-        self.conv_block = ResBlock(cin, features, kernel_size, 1, dtype=dtype, device=device)
+        self.conv_block = ResBlock(cin, features, kernel_size, 1, norm_name, dtype=dtype,
+                                   device=device)
 
     def forward(self, x, skip):
         return self.conv_block(x, skip)

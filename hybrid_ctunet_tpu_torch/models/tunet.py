@@ -41,7 +41,8 @@ class TUNetCore(nn.Module):
     def __init__(self, out_channels: int = 14, in_channels: int = 1, dim_conv_stem: int = 64,
                  img_size: Tuple[int, int] = (96, 96), frames: int = 96, patch_frame: int = 8,
                  hidden_size: int = 768, num_depths: int = 12, mlp_dim: int = 3072,
-                 num_heads: int = 12, window: int = 6, dtype=torch.float32, device=None):
+                 num_heads: int = 12, window: int = 6, dropout_rate: float = 0.0,
+                 norm_name: str = "instance", dtype=torch.float32, device=None):
         super().__init__()
         gh, gw, gf = img_size[0] // 16, img_size[1] // 16, frames // patch_frame
         up_xy = 2 * 2 * 2 * 2
@@ -61,10 +62,13 @@ class TUNetCore(nn.Module):
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
         self.vit = ViT3D(img_size, frames, 16, patch_frame, in_channels, hidden_size,
-                         num_depths, num_heads, 64, mlp_dim, **kw)
-        self.vit_encoder = UpAttentionBlock(hidden_size, DIMS, DS_STRIDE, window, **kw)
-        self.vit_encoder0 = _Holder(layer=ResBlock(in_channels, dim_conv_stem, 3, 1, **kw))
-        self.vit_decoder0 = CatConvBlock(64 + dim_conv_stem, dim_conv_stem, 3, **kw)
+                         num_depths, num_heads, 64, mlp_dim, dropout_rate, **kw)
+        self.vit_encoder = UpAttentionBlock(hidden_size, DIMS, DS_STRIDE, window, dropout_rate,
+                                            **kw)
+        self.vit_encoder0 = _Holder(layer=ResBlock(in_channels, dim_conv_stem, 3, 1,
+                                                   norm_name=norm_name, **kw))
+        self.vit_decoder0 = CatConvBlock(64 + dim_conv_stem, dim_conv_stem, 3,
+                                         norm_name=norm_name, **kw)
         self.vit_out = UnetOutHead(dim_conv_stem, out_channels, **kw)
         self.decoder_linear_96x96 = _Holder(head=Dense(64, out_channels, **kw))
 

@@ -47,11 +47,12 @@ def gather_bias(table: torch.Tensor, window: int) -> torch.Tensor:
     return table.float()[rel_pos_index(window, table.device)].permute(2, 0, 1)
 
 
-def reference_window_attention(q, k, v, bias, dtype):
+def reference_window_attention(q, k, v, bias, dtype, attn_dropout=None):
     """Plain core. q (pre-scaled), k, v: (n, T, heads*dh); bias
     (heads, T, T) fp32. Products of the compute-dtype inputs are summed in
     fp32 (the inputs are upcast, which is exact), as the JAX oracle's
-    ``preferred_element_type=float32``."""
+    ``preferred_element_type=float32``. ``attn_dropout``: a callable
+    applied to the softmaxed scores in the compute dtype (training only)."""
     n, t, c = q.shape
     heads = bias.shape[0]
     dh = c // heads
@@ -62,14 +63,16 @@ def reference_window_attention(q, k, v, bias, dtype):
     qh, kh, vh = split(q), split(k), split(v)
     sim = torch.matmul(qh, kh.transpose(-1, -2)) + bias.float()[None]
     attn = torch.softmax(sim, dim=-1).to(dtype)
+    if attn_dropout is not None:
+        attn = attn_dropout(attn)
     out = torch.matmul(attn.float(), vh).to(dtype)
     return out.transpose(1, 2).reshape(n, t, c)
 
 
-def reference_window_attention_table(q, k, v, table, window: int, dtype):
+def reference_window_attention_table(q, k, v, table, window: int, dtype, attn_dropout=None):
     """Plain version of K2: the table gathered to (heads, T, T), then the
     plain core."""
-    return reference_window_attention(q, k, v, gather_bias(table, window), dtype)
+    return reference_window_attention(q, k, v, gather_bias(table, window), dtype, attn_dropout)
 
 
 def supports(t: int, c: int, heads: int, dtype) -> bool:

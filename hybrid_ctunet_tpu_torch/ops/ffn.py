@@ -29,12 +29,17 @@ def _linear(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype).t())
 
 
-def reference_ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype):
-    """Plain version: FFN(x) without the residual."""
+def reference_ffn(x, ln_w, ln_b, w1, b1, w2, b2, dtype, hidden_dropout=None, out_dropout=None):
+    """Plain version: FFN(x) without the residual. ``hidden_dropout`` /
+    ``out_dropout``: callables applied after the GELU and after fc2
+    (training only; JAX ``models/layers.py:287-299``)."""
     y = layer_norm(x, ln_w, ln_b)
     h = _linear(y, w1, dtype) + b1.to(dtype)
     h = gelu_exact(h)
-    return _linear(h, w2, dtype) + b2.to(dtype)
+    if hidden_dropout is not None:
+        h = hidden_dropout(h)
+    out = _linear(h, w2, dtype) + b2.to(dtype)
+    return out if out_dropout is None else out_dropout(out)
 
 
 def reference_ffn_pair(x, params1: Sequence, params2: Sequence, dtype):

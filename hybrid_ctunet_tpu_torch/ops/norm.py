@@ -1,7 +1,8 @@
 """Normalization ops (channels-last). Port of
 ``hybrid_ctunet_tpu/ops/norm.py``: affine-free InstanceNorm (eps 1e-5) in
-every conv path, torch-style LayerNorm (eps 1e-5, affine) in attention paths.
-Statistics are fp32 whatever the activation dtype.
+every conv path, torch-style LayerNorm (eps 1e-5, affine) in attention paths,
+and BatchNorm (``--norm_name batch``, the JAX ``TorchBatchNorm``) in the conv
+paths in its place. Statistics are fp32 whatever the activation dtype.
 
 InstanceNorm (+ LeakyReLU) is kernel module K8: ``instance_norm`` and
 ``instance_norm_leaky`` take the plain version for CPU tensors and launch
@@ -168,3 +169,59 @@ def layer_norm(
     returned in ``x``'s dtype."""
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
     return y.to(x.dtype)
+
+
+def _batch_moments(xf: torch.Tensor, sync: bool):
+    """Per-channel mean and biased variance of ``xf`` (..., C) over every
+    other axis, and the element count, as device tensors. ``sync``: the sums
+    of x and x^2 and the count are summed over the default process group
+    first, through the autograd-aware all-reduce, so that the backward sees
+    the global batch (SyncBatchNorm)."""
+    C = xf.shape[-1]
+    flat = xf.reshape(-1, C)
+    stats = torch.cat([flat.sum(0), flat.square().sum(0), flat.new_full((1,), flat.shape[0])])
+    if sync:
+        from torch.distributed.nn.functional import all_reduce
+
+        stats = all_reduce(stats)
+    n = stats[2 * C]
+    mean = stats[:C] / n
+    var = torch.clamp(stats[C:2 * C] / n - mean.square(), min=0.0)
+    return mean, var, n
+
+
+def _batch_normalize(xf, mean, var, weight, bias, eps):
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return y * weight.float() + bias.float()
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor, *, training: bool,
+               momentum: float = 0.1, eps: float = 1e-5, sync: bool = False) -> torch.Tensor:
+    """BatchNorm over the channels-last ``x`` (B, X, Y, Z, C) with torch's
+    semantics (the JAX ``TorchBatchNorm``, ``ops/norm.py:142-200``): in
+    training the biased batch variance E[x^2] - E[x]^2 (fp32, clamped at 0)
+    normalizes, and the running buffers take the batch mean and the
+    unbiased variance (Bessel's factor over the global count) with
+    ``momentum``, in place; in eval the running buffers normalize. Returns
+    ``x``'s dtype. Plain PyTorch: the JAX package has no BatchNorm kernel.
+    The training path keeps only ``x`` for the backward, which recomputes
+    the statistics (and their all-reduce under ``sync``)."""
+    if not training:
+        return _batch_normalize(x.float(), running_mean, running_var, weight, bias,
+                                eps).to(x.dtype)
+
+    def plain(x, weight, bias):
+        xf = x.float()
+        mean, var, _ = _batch_moments(xf, sync)
+        return _batch_normalize(xf, mean, var, weight, bias, eps).to(x.dtype)
+
+    def run(x, weight, bias):
+        xf = x.float()
+        mean, var, n = _batch_moments(xf, sync)
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+            running_var.mul_(1.0 - momentum).add_(momentum * var * (n / (n - 1.0)))
+        return _batch_normalize(xf, mean, var, weight, bias, eps).to(x.dtype)
+
+    return recompute(run, plain, x, weight, bias)

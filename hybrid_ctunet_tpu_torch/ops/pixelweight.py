@@ -28,8 +28,12 @@ from .recompute import recompute
 DIM_HEAD = 32
 
 
-def reference_pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_HEAD):
-    """Plain version: x1, x2 (..., C) -> (..., C) in ``dtype``."""
+def reference_pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_HEAD,
+                          attn_dropout=None, out_dropout=None):
+    """Plain version: x1, x2 (..., C) -> (..., C) in ``dtype``.
+    ``attn_dropout`` / ``out_dropout``: callables applied to the
+    (..., heads, 2) softmaxed weights in ``dtype`` and to the output
+    projection (training only; JAX ``ops/pixelweight.py:55-93``)."""
     ln1w, ln1b, ln2w, ln2b, wqkv1, wqkv2, wout = params
     shape = x1.shape
     C = shape[-1]
@@ -48,10 +52,15 @@ def reference_pixelweight(x1, x2, params: Sequence, dtype, dim_head: int = DIM_H
     m = torch.maximum(d1, d2)
     e1, e2 = torch.exp(d1 - m), torch.exp(d2 - m)
     den = e1 + e2
-    w1 = (e1 / den).to(dtype)[..., None]
-    w2 = (e2 / den).to(dtype)[..., None]
+    if attn_dropout is None:
+        w1 = (e1 / den).to(dtype)[..., None]
+        w2 = (e2 / den).to(dtype)[..., None]
+    else:
+        w = attn_dropout(torch.stack([e1 / den, e2 / den], dim=-1).to(dtype))
+        w1, w2 = w[..., 0:1], w[..., 1:2]
     out = (w1 * v1 + w2 * v2).reshape(shape)
-    return torch.matmul(out, wout.to(dtype).t())
+    out = torch.matmul(out, wout.to(dtype).t())
+    return out if out_dropout is None else out_dropout(out)
 
 
 def supports(c: int, dtype, dim_head: int = DIM_HEAD) -> bool:

@@ -13,14 +13,25 @@ Channels-last batches: image (B, X, Y, Z, 1), label (B, X, Y, Z, 1).
 A step is forward, loss, backward and one optimizer update at the epoch's
 LR. ``grad_accum`` splits the batch into microbatches whose gradients add up
 before the one update: exact, since neither InstanceNorm nor the losses
-couple samples.
+couple samples (BatchNorm normalizes each microbatch over its own samples
+and folds its running buffers microbatch by microbatch, as the JAX step
+does).
+
+Dropout masks come from the step's own ``torch.Generator`` on the model's
+device, reseeded for each microbatch from (``DROPOUT_SEED``, ``rank``, step,
+microbatch): the JAX step folds the step and the microbatch into
+``PRNGKey(0)`` (``train/steps.py:119-122,169-173``) and its DP step the
+shard index (``parallel/dp.py:51-55``). Masks cannot equal JAX's.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Dict
 
+import numpy as np
 import torch
 
+from ..models.layers import Dropout, set_dropout_generator
 from ..ops.losses import dice_ce_loss
 from ..ops.resize import downscale_labels
 from .state import set_learning_rate
@@ -63,30 +74,67 @@ def ctunet_loss_fn(outs, label, **kw):
 LOSS_FNS = {"cunet": cunet_loss_fn, "tunet": tunet_loss_fn, "ctunet": ctunet_loss_fn}
 
 
-def make_train_step(model_name: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    *, smooth_nr: float = 0.0, smooth_dr: float = 1e-6,
-                    grad_accum: int = 1) -> Callable:
-    """``step(image, label, lr) -> {"loss": ..., **aux}``: tensors on
-    ``image``'s device, detached; the model's parameters and the optimizer
-    state are updated in place."""
-    loss_impl = LOSS_FNS[model_name]
+DROPOUT_SEED = 0  # the JAX steps' default dropout_seed
 
-    def step(image: torch.Tensor, label: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
-        B = image.shape[0]
-        if B % grad_accum:
-            raise ValueError(f"batch {B} not divisible by grad_accum {grad_accum}")
-        mb = B // grad_accum
-        optimizer.zero_grad(set_to_none=True)
+
+def dropout_seed_of(rank: int, step: int, microbatch: int) -> int:
+    """The generator seed of one microbatch's masks."""
+    return int(np.random.SeedSequence([DROPOUT_SEED, rank, step, microbatch])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+class TrainStep:
+    """``step(image, label, lr) -> {"loss": ..., **aux}``: tensors on
+    ``image``'s device, detached; the model's parameters, buffers and the
+    optimizer state are updated in place. ``model`` may be wrapped (a
+    ``DistributedDataParallel``); its gradients are then synced once a
+    step, at the last microbatch. ``self.step`` counts the steps taken,
+    from ``start_step`` (a resumed run's saved count, so that it draws new
+    masks, as the JAX step's restored ``state.step`` does)."""
+
+    def __init__(self, model_name: str, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, *, smooth_nr: float = 0.0,
+                 smooth_dr: float = 1e-6, grad_accum: int = 1, rank: int = 0,
+                 start_step: int = 0):
+        self.loss_impl = LOSS_FNS[model_name]
+        self.model, self.optimizer = model, optimizer
+        self.loss_kw = dict(smooth_nr=smooth_nr, smooth_dr=smooth_dr)
+        self.grad_accum, self.rank = grad_accum, rank
+        self.step = start_step
+        self.generator = None
+        if any(isinstance(m, Dropout) and m.rate > 0 for m in model.modules()):
+            device = next(model.parameters()).device
+            self.generator = torch.Generator(device=device)
+            set_dropout_generator(model, self.generator)
+
+    def __call__(self, image: torch.Tensor, label: torch.Tensor,
+                 lr: float) -> Dict[str, torch.Tensor]:
+        B, accum = image.shape[0], self.grad_accum
+        if B % accum:
+            raise ValueError(f"batch {B} not divisible by grad_accum {accum}")
+        mb = B // accum
+        self.optimizer.zero_grad(set_to_none=True)
         metrics: Dict[str, torch.Tensor] = {}
-        for i in range(grad_accum):
+        for i in range(accum):
+            if self.generator is not None:
+                self.generator.manual_seed(
+                    dropout_seed_of(self.rank, self.step, i))
             sl = slice(i * mb, (i + 1) * mb)
-            loss, aux = loss_impl(model(image[sl]), label[sl], smooth_nr=smooth_nr,
-                                  smooth_dr=smooth_dr)
-            (loss / grad_accum).backward()
+            sync = i == accum - 1 or not hasattr(self.model, "no_sync")
+            with contextlib.nullcontext() if sync else self.model.no_sync():
+                loss, aux = self.loss_impl(self.model(image[sl]), label[sl], **self.loss_kw)
+                (loss / accum).backward()
             for k, v in {"loss": loss, **aux}.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() / grad_accum
-        set_learning_rate(optimizer, lr)
-        optimizer.step()
+                metrics[k] = metrics.get(k, 0.0) + v.detach() / accum
+        set_learning_rate(self.optimizer, lr)
+        self.optimizer.step()
+        self.step += 1
         return metrics
 
-    return step
+
+def make_train_step(model_name: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    *, smooth_nr: float = 0.0, smooth_dr: float = 1e-6, grad_accum: int = 1,
+                    rank: int = 0, start_step: int = 0) -> TrainStep:
+    """The train step of ``model_name`` (see :class:`TrainStep`)."""
+    return TrainStep(model_name, model, optimizer, smooth_nr=smooth_nr, smooth_dr=smooth_dr,
+                     grad_accum=grad_accum, rank=rank, start_step=start_step)

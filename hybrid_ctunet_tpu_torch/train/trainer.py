@@ -1,5 +1,5 @@
 """The training loop for CUNet, TUNet and CTUNet. Port of
-``hybrid_ctunet_tpu/train/trainer.py`` for one device.
+``hybrid_ctunet_tpu/train/trainer.py``.
 
 Behaviour (reference trainer_CUNet.py:195-265, trainer_TUNet.py,
 trainer_CTUNet.py:320-414):
@@ -15,7 +15,10 @@ trainer_CTUNet.py:320-414):
   the res head -> ``model_res.pt``, the vit head -> ``model_vit.pt``
   (trainer_CTUNet.py:339-341, 382-405); and ``latest.pt`` at every
   validation epoch, for restarts;
-- scalars under the reference's tag names.
+- scalars under the reference's tag names;
+- under a process group, prints, scalars and checkpoints on rank 0 only
+  (JAX ``trainer.py:221-275``); validation runs on every rank through the
+  rank-sharded engine, so every rank takes the same best-metric decision.
 
 The deep-supervision targets are downscaled on the device inside the step,
 and bf16 compute takes the place of AMP.
@@ -32,6 +35,7 @@ import torch
 from ..data.transforms import invert_to_native
 from ..eval.metrics import per_organ_dice
 from ..infer.sliding_window import SlidingWindowEngine
+from ..parallel.mesh import is_main_process, rank_and_world
 from ..utils.logging import AverageMeter, ScalarWriter
 from .checkpoint import save_checkpoint
 from .schedule import make_epoch_schedule
@@ -74,16 +78,19 @@ def _channels_last(a: np.ndarray, device) -> torch.Tensor:
 
 
 def train_epoch(step_fn: Callable, loader, lr: float, *, epoch: int, device) -> float:
-    """One epoch of train steps, a line per step; returns the mean loss."""
+    """One epoch of train steps, a line per step (rank 0); returns the mean
+    loss."""
     meter = AverageMeter()
     pending = []  # (loss on the device, batch size, step, host seconds)
     n_batches = len(loader)
+    verbose = is_main_process()
 
     def drain():
         for loss_dev, n, idx, dt in pending:
             loss = float(loss_dev)
             meter.update(loss, n=n)
-            print(f"Epoch {epoch} {idx}/{n_batches} loss: {loss:.4f} time {dt:.2f}s")
+            if verbose:
+                print(f"Epoch {epoch} {idx}/{n_batches} loss: {loss:.4f} time {dt:.2f}s")
         pending.clear()
 
     t0 = time.time()
@@ -101,7 +108,8 @@ def train_epoch(step_fn: Callable, loader, lr: float, *, epoch: int, device) -> 
 def make_val_engine(model: torch.nn.Module, cfg: TrainConfig, *,
                     dual_output: bool) -> SlidingWindowEngine:
     """The validation engine: CTUNet's full-resolution res and vit heads
-    (dual output), or the first head of CUNet / TUNet."""
+    (dual output), or the first head of CUNet / TUNet; sharded over the
+    ranks of the process group, where there is one."""
 
     def predictor(x):
         outs = model(x)
@@ -109,8 +117,10 @@ def make_val_engine(model: torch.nn.Module, cfg: TrainConfig, *,
             return outs[0][0], outs[1][0]
         return outs[0]
 
+    rank, world = rank_and_world()
     return SlidingWindowEngine(predictor, cfg.roi_size, sw_batch_size=cfg.sw_batch_size,
-                               overlap=cfg.infer_overlap, num_outputs=2 if dual_output else 1)
+                               overlap=cfg.infer_overlap, num_outputs=2 if dual_output else 1,
+                               rank=rank, world=world)
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:
@@ -166,7 +176,8 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
                  start_epoch: int = 0) -> Dict[str, float]:
     """The reference's run_training; returns the best accuracies."""
     dual = cfg.model_name == "ctunet"
-    writer = ScalarWriter(cfg.logdir)
+    main = is_main_process()
+    writer = ScalarWriter(cfg.logdir if main else None)
     ckpt_dir = cfg.logdir or "."
     engine = make_val_engine(model, cfg, dual_output=dual)
     schedule = make_epoch_schedule(cfg.lrschedule, base_lr=cfg.optim_lr,
@@ -174,7 +185,8 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
     best = {"hybrid": 0.0, "res": 0.0, "vit": 0.0} if dual else {"acc": 0.0}
 
     def save(fname, epoch, acc):
-        save_checkpoint(ckpt_dir, fname, model, optimizer, epoch=epoch, best_acc=acc)
+        if cfg.save_checkpoint and main:
+            save_checkpoint(ckpt_dir, fname, model, optimizer, epoch=epoch, best_acc=acc)
 
     try:
         for epoch in range(start_epoch, cfg.max_epochs):
@@ -183,13 +195,13 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
             model.train()
             t0 = time.time()
             train_loss = train_epoch(step_fn, train_loader, lr, epoch=epoch, device=device)
-            print(f"Final training  {epoch}/{cfg.max_epochs - 1} loss: {train_loss:.4f} "
-                  f"time {time.time() - t0:.2f}s")
+            if main:
+                print(f"Final training  {epoch}/{cfg.max_epochs - 1} loss: {train_loss:.4f} "
+                      f"time {time.time() - t0:.2f}s")
             writer.add_scalar("train_loss", train_loss, epoch)
             if (epoch + 1) % cfg.val_every:
                 continue
-            if cfg.save_checkpoint:
-                save("latest.pt", epoch + 1, max(best.values()))
+            save("latest.pt", epoch + 1, max(best.values()))
             if not val_cases:
                 continue
             accs = val_epoch(model, engine, val_cases, cfg, dual_output=dual, device=device)
@@ -205,10 +217,10 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
                 writer.add_scalar("val_acc", accs[0], epoch)
             for key, acc, fname in named:
                 if acc > best[key]:
-                    print(f"new best ({best[key]:.6f} --> {acc:.6f})")
+                    if main:
+                        print(f"new best ({best[key]:.6f} --> {acc:.6f})")
                     best[key] = acc
-                    if cfg.save_checkpoint:
-                        save(fname, epoch, acc)
+                    save(fname, epoch, acc)
     finally:
         writer.close()
     return best

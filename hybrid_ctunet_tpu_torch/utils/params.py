@@ -10,9 +10,17 @@ without jax:
   Conv3d  kernel (k0, k1, k2, Cin, Cout) -> weight (Cout, Cin, k0, k1, k2)
   ConvT3d kernel (k0, k1, k2, Cin, Cout) -> weight (Cin, Cout, k0, k1, k2)
   LayerNorm scale/bias                   -> weight/bias
+  BatchNorm scale/bias (``params``), mean/var (``batch_stats``)
+                                         -> weight/bias, running_mean/var
+                                            (num_batches_tracked 0: the JAX
+                                            package keeps no count)
   blocks stacked on a leading depth axis (the JAX package's nn.scan layout:
   ``vit/blocks``, ``convnet/layer{s}_tail/block``) or one node per block
   (``vit/block{i}``, ``convnet/layer{s}_block{b}``) -> one key per block
+
+BatchNorm keys are named after the port's owners: ``norm1``-``norm3`` of a
+ResBlock or Bottleneck and the ResNet stem, ``downsample.1`` of a
+Bottleneck's projection (the JAX ``downsample_norm``).
 """
 from __future__ import annotations
 
@@ -70,10 +78,23 @@ class _Out:
         self.put(f"{dst}.rel_pos_bias.weight", node["rel_pos_bias"])
         self.dense(f"{dst}.to_out.0", node["to_out"])
 
-    def resblock(self, dst, node):
+    def norm(self, dst, node, stats, name):
+        """A BatchNorm's parameters and running statistics; nothing for an
+        InstanceNorm site, which has neither."""
+        if name not in node:
+            return
+        self.put(f"{dst}.weight", node[name]["scale"])
+        self.put(f"{dst}.bias", node[name]["bias"])
+        self.put(f"{dst}.running_mean", stats[name]["mean"])
+        self.put(f"{dst}.running_var", stats[name]["var"])
+        self.put(f"{dst}.num_batches_tracked", 0)
+
+    def resblock(self, dst, node, stats=None):
         for name in ("conv1", "conv2", "conv3"):
             if name in node:
                 self.conv(f"{dst}.{name}.conv", node[name])
+        for name in ("norm1", "norm2", "norm3"):
+            self.norm(f"{dst}.{name}", node, stats, name)
 
     def head(self, dst, node):
         self.conv(f"{dst}.conv.conv", node["conv"])
@@ -88,25 +109,34 @@ class _Out:
         self.dense(f"{dst}.to_qkv2", node["to_qkv2"])
         self.dense(f"{dst}.to_out.0", node["to_out"])
 
-    def resnet(self, dst, node):
+    def resnet(self, dst, node, stats=None):
+        stats = stats or {}
         self.conv(f"{dst}.conv1.conv", node["conv1"])
+        self.norm(f"{dst}.norm1", node, stats, "norm1")
         stage = 1
         while f"layer{stage}_block0" in node:
-            blocks = [node[f"layer{stage}_block0"]]
+            blocks = [(node[f"layer{stage}_block0"], stats.get(f"layer{stage}_block0"))]
             tail = node.get(f"layer{stage}_tail")
             if tail is not None:
                 depth = np.asarray(tail["block"]["conv1"]["kernel"]).shape[0]
-                blocks += [_index_tree(tail["block"], i) for i in range(depth)]
+                tail_stats = stats.get(f"layer{stage}_tail", {}).get("block")
+                blocks += [(_index_tree(tail["block"], i),
+                            None if tail_stats is None else _index_tree(tail_stats, i))
+                           for i in range(depth)]
             else:
                 b = 1
                 while f"layer{stage}_block{b}" in node:
-                    blocks.append(node[f"layer{stage}_block{b}"])
+                    blocks.append((node[f"layer{stage}_block{b}"],
+                                   stats.get(f"layer{stage}_block{b}")))
                     b += 1
-            for b, blk in enumerate(blocks):
+            for b, (blk, st) in enumerate(blocks):
+                base = f"{dst}.layer{stage}.{b}"
                 for j in (1, 2, 3):
-                    self.conv(f"{dst}.layer{stage}.{b}.conv{j}.conv", blk[f"conv{j}"])
+                    self.conv(f"{base}.conv{j}.conv", blk[f"conv{j}"])
+                    self.norm(f"{base}.norm{j}", blk, st, f"norm{j}")
                 if "downsample_conv" in blk:
-                    self.conv(f"{dst}.layer{stage}.{b}.downsample.0.conv", blk["downsample_conv"])
+                    self.conv(f"{base}.downsample.0.conv", blk["downsample_conv"])
+                    self.norm(f"{base}.downsample.1", blk, st, "downsample_norm")
             stage += 1
 
     def res_heads(self, tree):
@@ -120,7 +150,7 @@ def _index_tree(node, i):
     return np.asarray(node)[i]
 
 
-def _tunet_core(out: _Out, core: Mapping) -> None:
+def _tunet_core(out: _Out, core: Mapping, stats: Mapping) -> None:
     """The ViT branch, which TUNet and CTUNet key alike (at the top level)."""
     vit = core["vit"]
     out.ln("vit.to_patch_embedding.1", vit["patch_norm1"])
@@ -155,54 +185,68 @@ def _tunet_core(out: _Out, core: Mapping) -> None:
             shuffle = f"{base}.4"
         out.dense(f"{shuffle}.to_out", enc[f"stage{ind}_shuffle"]["to_out"])
 
-    out.resblock("vit_encoder0.layer", core["vit_encoder0"])
-    out.resblock("vit_decoder0.conv_block", core["vit_decoder0"]["conv_block"])
+    out.resblock("vit_encoder0.layer", core["vit_encoder0"], stats.get("vit_encoder0"))
+    out.resblock("vit_decoder0.conv_block", core["vit_decoder0"]["conv_block"],
+                 stats.get("vit_decoder0", {}).get("conv_block"))
     out.dense("decoder_linear_96x96.head", core["decoder_linear_96x96"])
     out.head("vit_out", core["vit_out"])
 
 
-def _params(tree: Mapping) -> Mapping:
-    return tree["params"] if "params" in tree else tree
+def _split(tree: Mapping):
+    """(params, batch_stats) of a variables dict (``{"params": ...,
+    "batch_stats": ...}``) or of a bare parameter tree (no statistics)."""
+    if "params" in tree:
+        return tree["params"], tree.get("batch_stats") or {}
+    return tree, {}
+
+
+def _decoder_stats(stats: Mapping, name: str, block: str) -> Mapping:
+    return stats.get(name, {}).get(block)
 
 
 def tunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """JAX TUNet parameter tree (``{"params": {"core": ...}}`` or the inner
-    ``{"core": ...}``, leaves array-like) -> reference/port state dict of
-    float32 numpy arrays."""
+    """JAX TUNet variables (``{"params": {"core": ...}[, "batch_stats":
+    ...]}``) or parameter tree (``{"core": ...}``), leaves array-like ->
+    reference/port state dict of float32 numpy arrays."""
+    params, stats = _split(tree)
     out = _Out()
-    _tunet_core(out, _params(tree)["core"])
+    _tunet_core(out, params["core"], stats.get("core", {}))
     return out.sd
 
 
 def cunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """JAX CUNet parameter tree -> reference/port state dict (the inverse of
-    ``convert_cunet``)."""
-    tree = _params(tree)
+    """JAX CUNet variables or parameter tree -> reference/port state dict
+    (the inverse of ``convert_cunet``)."""
+    tree, stats = _split(tree)
     out = _Out()
-    out.resnet("convnet", tree["convnet"])
+    out.resnet("convnet", tree["convnet"], stats.get("convnet"))
     for k in (3, 2, 1, 0):
         node = tree[f"res_decoder{k}"]
         out.transp(f"res_decoder{k}", node)
-        out.resblock(f"res_decoder{k}.conv_block", node["conv_block"])
+        out.resblock(f"res_decoder{k}.conv_block", node["conv_block"],
+                     _decoder_stats(stats, f"res_decoder{k}", "conv_block"))
     out.res_heads(tree)
     return out.sd
 
 
 def ctunet_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """JAX CTUNet parameter tree -> reference/port state dict (the inverse of
-    ``convert_ctunet``): the ViT branch from ``core`` to the top level."""
-    tree = _params(tree)
+    """JAX CTUNet variables or parameter tree -> reference/port state dict
+    (the inverse of ``convert_ctunet``): the ViT branch from ``core`` to the
+    top level."""
+    tree, stats = _split(tree)
     out = _Out()
-    _tunet_core(out, tree["core"])
-    out.resnet("convnet", tree["convnet"])
+    _tunet_core(out, tree["core"], stats.get("core", {}))
+    out.resnet("convnet", tree["convnet"], stats.get("convnet"))
     for k in (3, 2, 1):
         dst, node = f"res_decoder{k}", tree[f"res_decoder{k}"]
         out.transp(dst, node)
         for i in (1, 2):
             out.pixelweight(f"{dst}.pixelweight_attention{i}", node[f"pixelweight_attention{i}"])
-            out.resblock(f"{dst}.up_addconv_block{i}", node[f"up_addconv_block{i}"])
+            out.resblock(f"{dst}.up_addconv_block{i}", node[f"up_addconv_block{i}"],
+                         _decoder_stats(stats, dst, f"up_addconv_block{i}"))
     out.transp("res_decoder0", tree["res_decoder0"])
-    out.resblock("res_decoder0.conv_block", tree["res_decoder0"]["conv_block"])
+    out.resblock("res_decoder0.conv_block", tree["res_decoder0"]["conv_block"],
+                 _decoder_stats(stats, "res_decoder0", "conv_block"))
     out.res_heads(tree)
     return out.sd
 

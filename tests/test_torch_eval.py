@@ -230,21 +230,29 @@ def test_single_and_ctunet_run(eval_dirs, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     ([], "--device cpu"),
-    (["--device=cpu", "--norm_name=batch"], "A13"),
-    (["--device=cpu", "--distributed"], "A10"),
+    (["--device=cpu", "--norm_name=batch"], "running_mean"),
+    (["--device=cpu", "--distributed", "--dropout_rate=0.2", "--exp_name=dist"], None),
     (["--device=cpu", "--resume_jit"], "TorchScript"),
 ])
 def test_eval_cli_refuses(eval_dirs, monkeypatch, extra, match):
     """--device defaults to cuda and the entries refuse to run without a
-    card; BatchNorm and multi-GPU exit naming their ROADMAP items."""
+    card; --resume_jit exits. --norm_name batch reaches the model: the
+    instance-norm checkpoints lack its BatchNorm parameters and buffers.
+    --distributed runs (one gloo rank on the CPU; with --dropout_rate 0.2,
+    the identity in eval mode) and rank 0 writes the outputs."""
     if not extra and torch.cuda.is_available():
         pytest.skip("this machine has a card")
     root, flags_ = eval_dirs
     monkeypatch.chdir(root)
     assert build_test_parser("ctunet").parse_args([]).device == "cuda"
-    with pytest.raises(SystemExit, match=match):
-        tm.test_final(flags_ + [f"--ctunet_dir={root / 'ct'}", f"--tunet_dir={root / 'tu'}",
-                                *extra])
+    argv = flags_ + [f"--ctunet_dir={root / 'ct'}", f"--tunet_dir={root / 'tu'}", *extra]
+    if match is None:
+        out = tm.test_final(argv)
+        assert np.isfinite(out["dice"]).all()
+        assert (root / "outputs" / "dist" / "dice.txt").exists()
+        return
+    with pytest.raises(KeyError if "running" in match else SystemExit, match=match):
+        tm.test_final(argv)
 
 
 def test_eval_accepts_dropout_and_refuses_orbax_dirs(eval_dirs, monkeypatch, tmp_path):
@@ -253,8 +261,7 @@ def test_eval_accepts_dropout_and_refuses_orbax_dirs(eval_dirs, monkeypatch, tmp
     prints the usage."""
     root, flags_ = eval_dirs
     monkeypatch.chdir(root)
-    factory.check_supported(build_test_parser("ctunet").parse_args(["--dropout_rate=0.2"]),
-                            training=False)
+    factory.check_supported(build_test_parser("ctunet").parse_args(["--dropout_rate=0.2"]))
     orbax = tmp_path / "ct"
     (orbax / "model_res.pt").mkdir(parents=True)
     with pytest.raises(SystemExit, match="orbax"):

@@ -334,19 +334,47 @@ def test_train_cli_end_to_end(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max(), rtol=1e-3)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--dropout_rate", "0.2"], "A12"),
-    (["--norm_name", "batch"], "A13"),
-    (["--distributed"], "A10"),
+def _rates(model):
+    """The dropout rates of the sites; the fusions' pixelweight sites keep
+    0, as no CTUNet caller sets their rate."""
+    from hybrid_ctunet_tpu_torch.models.layers import Dropout
+
+    return {m.rate for n, m in model.named_modules()
+            if isinstance(m, Dropout) and "pixelweight" not in n}
+
+
+def _norms(model):
+    from hybrid_ctunet_tpu_torch.models.layers import ConvNorm
+
+    return {(m.kind, m.sync) for m in model.modules() if isinstance(m, ConvNorm)}
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--dropout_rate", "0.2"], lambda m: _rates(m) == {0.2}),
+    (["--norm_name", "batch"], lambda m: _norms(m) == {("batch", False)}),
+    (["--distributed", "--world_size", "2", "--norm_name", "batch"],
+     lambda m: _norms(m) == {("batch", True)} and _rates(m) == {0.0}),
     (["--resume_jit"], "TorchScript"),
     ([], "--device cpu"),
 ])
-def test_cli_refuses_what_it_lacks(flags, match):
-    """Flags that wait for later work exit naming the ROADMAP item; without
-    a card the entry point refuses unless --device cpu is given."""
+def test_cli_refuses_what_it_lacks(flags, expect):
+    """--dropout_rate, --norm_name batch and --distributed are accepted and
+    reach the model: ``build_model`` sets the dropout rate of every site,
+    BatchNorm at every conv-path norm, and SyncBatchNorm in a world of more
+    than one process. --resume_jit exits (as in the JAX package); without a
+    card the entry point refuses unless --device cpu is given."""
     if not flags and torch.cuda.is_available():
         pytest.skip("this machine has a card")
     args = build_train_parser("ctunet").parse_args(flags)
-    with pytest.raises(SystemExit, match=match):
-        factory.check_supported(args)
-        factory.select_device(args)
+    if isinstance(expect, str):
+        with pytest.raises(SystemExit, match=expect):
+            factory.check_supported(args)
+            factory.select_device(args)
+        return
+    factory.check_supported(args)
+    args.model_name = "ctunet"
+    for k, v in dict(roi_x=32, roi_y=32, roi_z=32, out_channels=3, hidden_size=64,
+                     num_depths=1, mlp_dim=128, num_heads=2, feature_size=16,
+                     window=2).items():
+        setattr(args, k, v)
+    assert expect(factory.build_model(args, torch.device("cpu")))
