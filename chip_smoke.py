@@ -69,6 +69,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    checkpoints written once, ``latest.pt`` reloaded), and ``test_final
    --distributed`` on phase 7's case, whose masks must equal phase 7's.
    Each sub-phase's s/step, peak memory and launches; the run's wall time.
+9. The measuring layer: the ensemble at 8 windows a chunk (launches per
+   volume equal to the module tree's x 7 CTUNet and 19 TUNet chunks, K1
+   bit-exact on each engine's first 8-window and trailing 2- and 3-window
+   chunks, one 8-window chunk of each model with every kernel call held to
+   its plain version, 2 timed volumes at 8 beside 2 at 4, the hybrid's MFU
+   at each); ``cli/mfu.py``'s useful FLOPs, chunk ms and MFU of both models
+   at 4 and 8; ``cli/bench.py::profile_device`` on a warm volume of each
+   half with every kernel's traced records equal to its launch counter (as
+   in the profiled steps of phases 6 and 8b); ``utils.profiling.
+   enable_nan_checks`` catching a NaN planted in a TUNet chunk.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -704,31 +714,6 @@ def check_launches(what, counts, per_chunk_and_chunks):
         raise AssertionError(f"{what}: launches {counts} differ from the module tree's {want}")
 
 
-def gates_off():
-    """Context: every kernel module's gate declines, so each site takes its
-    plain version."""
-    import contextlib
-
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle, winograd
-
-    @contextlib.contextmanager
-    def ctx():
-        saved = [(m, n, getattr(m, n)) for m, n in (
-            (attention, "supports"), (ffn, "supports"), (ffn, "pair_supports"),
-            (shuffle, "supports"),
-            (shuffle, "transp_supports"), (pixelweight, "supports"), (norm, "supports"),
-            (winograd, "supports"))]
-        for m, n, _ in saved:
-            setattr(m, n, lambda *a, **k: False)
-        try:
-            yield
-        finally:
-            for m, n, f in saved:
-                setattr(m, n, f)
-
-    return ctx()
-
-
 def per_call_checks():
     """Context: every kernel wrapper also runs its plain version on the same
     inputs and holds the two to the bf16 tolerance; yields {site: worst
@@ -801,6 +786,7 @@ def model_check(name, forward, device, chaotic: bool = False):
     MODEL_REL_L2."""
     import torch
 
+    from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import bench
 
     x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
@@ -811,7 +797,7 @@ def model_check(name, forward, device, chaotic: bool = False):
     with torch.inference_mode():
         with per_call_checks() as worst:
             got = forward(x)
-        with gates_off():
+        with kernels.gates_off():
             want = forward(x)
             moved = forward(x_ulp)
     torch.cuda.synchronize()
@@ -1139,15 +1125,16 @@ def build_train(device, extra=()):
 
 
 def run_steps(step, lr, tree, batches, device, steps_timed: int):
-    """One warm-up step and ``steps_timed`` timed ones (host clock around
-    each, ending in a synchronize), per-step launches equal to ``tree``, a
+    """One warm-up step and ``steps_timed`` timed ones (``StepTimer``: host
+    clock, fenced on the step's metrics), per-step launches equal to ``tree``, a
     finite loss at every step, and the peak memory of the timed steps.
     Returns the statistics and the last batch on the card."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.utils import StepTimer
 
-    times, losses, per_step = [], [], {}
+    timer, losses, per_step = StepTimer(), [], {}
     for i, (image, label) in enumerate(batches[:1 + steps_timed]):
         x = torch.from_numpy(image).to(device)
         y = torch.from_numpy(label).to(device)
@@ -1155,10 +1142,9 @@ def run_steps(step, lr, tree, batches, device, steps_timed: int):
             torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
+        timer.tic()
         metrics = step(x, y, lr)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = timer.toc(metrics)
         counts = kernels.launch_counts()
         loss = metrics["loss"].item()
         log(f"  step {i}{' (warm-up)' if i == 0 else ''}: {dt!r} s, loss {loss!r} "
@@ -1167,9 +1153,8 @@ def run_steps(step, lr, tree, batches, device, steps_timed: int):
             raise AssertionError(f"step {i}: loss {loss}")
         check_launches(f"train step {i}", counts, [(tree, 1)])
         losses.append(loss)
-        if i:
-            times.append(dt)
         per_step = counts
+    times = timer.times[1:]
     peak = torch.cuda.max_memory_allocated()
     log(f"  timed steps {times!r} s (mean {statistics.mean(times)!r}), peak memory {peak} B")
     return {"seconds_per_step": times, "mean_s": statistics.mean(times), "losses": losses,
@@ -1256,12 +1241,7 @@ def eval_hooks(record):
     before the call). ``record``: a dict the hooks fill."""
     import contextlib
 
-    import numpy as np
-    import torch
-
     from hybrid_ctunet_tpu_torch.cli import test_main
-    from hybrid_ctunet_tpu_torch.infer import sliding_window
-    from hybrid_ctunet_tpu_torch.ops import scatter
 
     def dispatch(engine, model, case):
         t0 = time.perf_counter()
@@ -1280,6 +1260,33 @@ def eval_hooks(record):
         record["pipeline_s"].append(time.perf_counter() - t0)
         return out
 
+    orig_dispatch, orig_pipeline = test_main._dispatch, test_main._pipeline_cases
+
+    @contextlib.contextmanager
+    def ctx():
+        test_main._dispatch, test_main._pipeline_cases = dispatch, pipeline
+        try:
+            with k1_checks(record["k1_checked"]):
+                yield
+        finally:
+            test_main._dispatch, test_main._pipeline_cases = orig_dispatch, orig_pipeline
+
+    return ctx()
+
+
+def k1_checks(checked):
+    """Context: every K1 call of an engine's first and trailing chunk held
+    bit for bit to the plain version on the engine's own canvas and
+    predictions (a copy of the canvas taken before the call); each checked
+    call's window count is appended to ``checked``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from hybrid_ctunet_tpu_torch.infer import sliding_window
+    from hybrid_ctunet_tpu_torch.ops import scatter
+
     def checked_scatter(acc, pred, imp, starts):
         last = tuple(d - r for d, r in zip(acc.shape[:3], imp.shape))
         if np.any(starts[0]) and tuple(starts[-1].tolist()) != last:
@@ -1288,20 +1295,16 @@ def eval_hooks(record):
         out = scatter.scatter_add_windows(acc, pred, imp, starts)
         want = scatter.reference_scatter_add_windows(before, pred, imp, starts)
         if not torch.equal(out, want):
-            raise AssertionError(f"K1 on the eval's chunk {starts.tolist()}: not bit-exact")
-        record["k1_checked"].append(len(starts))
+            raise AssertionError(f"K1 on the chunk {starts.tolist()}: not bit-exact")
+        checked.append(len(starts))
         return out
-
-    orig_dispatch, orig_pipeline = test_main._dispatch, test_main._pipeline_cases
 
     @contextlib.contextmanager
     def ctx():
-        test_main._dispatch, test_main._pipeline_cases = dispatch, pipeline
         sliding_window.scatter_add_windows = checked_scatter
         try:
             yield
         finally:
-            test_main._dispatch, test_main._pipeline_cases = orig_dispatch, orig_pipeline
             sliding_window.scatter_add_windows = scatter.scatter_add_windows
 
     return ctx()
@@ -1457,21 +1460,22 @@ def dropout_masks(record):
     return ctx()
 
 
-def eval_chunk(name, model, device, tree):
-    """One 4-window chunk through ``model``'s res-only forward in eval mode:
-    every kernel call held to its plain version on the model's own
-    activations, launches equal to ``tree``; returns the res logits."""
+def eval_chunk(name, model, device, tree, windows: int = CHUNK, res_only: bool = True):
+    """One chunk of ``windows`` windows through ``model``'s forward in eval
+    mode (a CTUNet's res-only one unless ``res_only`` is off): every kernel
+    call held to its plain version on the model's own activations, launches
+    equal to ``tree``; returns the (first) logits."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import bench
 
-    x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
+    x = bench.make_volume(SEED + 7, (windows, *bench.ROI), device)[0].to(torch.bfloat16)
     model.eval()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with torch.inference_mode(), per_call_checks() as worst:
-        res = model(x, res_only=True)
+        res = model(x, res_only=True) if res_only else model(x)[0]
         torch.cuda.synchronize()
         counts = kernels.launch_counts()  # the checked wrappers count while they stand
     check_launches(f"{name}, eval chunk", counts, [(tree, 1)])
@@ -1677,6 +1681,111 @@ def phase_ddp(device, work, eval_argv):
             "train_cli_wall_s": cli_wall, "test_final_wall_s": eval_wall}
 
 
+SW_WIDE = 8  # the JAX bench's window batch (bench.py BENCH_SW_CT / BENCH_SW_TU)
+
+
+def phase_measure(device):
+    """9. The measuring layer on the card. (a) The ensemble at 8 windows a
+    chunk: launches per volume equal to the module tree's x 7 CTUNet and 19
+    TUNet chunks, every K1 call of each engine's first and trailing chunk
+    bit-exact, one 8-window chunk of each model with every kernel call held
+    to its plain version, and 2 timed volumes at 8 beside 2 at 4 (in turns
+    4, 8, 8, 4) with the hybrid's MFU at each. (b) ``cli.mfu`` for both models
+    at 4 and 8 windows. (c) ``bench.profile_device`` on a warm volume of each
+    half at 4, its traced kernel records equal to the launch counters. (d)
+    ``enable_nan_checks``: a NaN in one window of a TUNet chunk raises
+    ``FloatingPointError`` naming a module; with the checks off the chunk
+    runs."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import bench, mfu
+    from hybrid_ctunet_tpu_torch.utils import enable_nan_checks, flops
+
+    t0 = time.perf_counter()
+    ctunet, tunet = bench.build_ctunet(SEED, device), bench.build_tunet(SEED, device)
+    volume = bench.make_volume(SEED, bench.VOLUME_SHAPE, device)
+    engines = {sw: (bench.make_ctunet_engine(ctunet, sw=sw), bench.make_engine(tunet, sw=sw))
+               for sw in (CHUNK, SW_WIDE)}
+    ct8, tu8 = engines[SW_WIDE]
+    chunks = (n_chunks(ct8)[1], n_chunks(tu8)[1])
+    log(f"  (a) sw {SW_WIDE}: CTUNet {n_chunks(ct8)[0]} windows in {chunks[0]} chunks, "
+        f"TUNet {n_chunks(tu8)[0]} in {chunks[1]}")
+    if chunks != (7, 19):
+        raise AssertionError(f"{chunks} chunks at sw {SW_WIDE}, expected (7, 19)")
+    checked = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with k1_checks(checked):
+        _, _, prob, mask = bench.segment_hybrid(ct8, tu8, volume)
+    torch.cuda.synchronize()
+    counts8 = kernels.launch_counts()
+    check_launches(f"hybrid volume at sw {SW_WIDE}", counts8,
+                   [(tree_launches(ctunet, res_only=True), chunks[0]),
+                    (tree_launches(tunet), chunks[1])])
+    check_mask(mask)
+    log(f"  K1 bit-exact on the first and trailing chunk of each engine: windows {checked}")
+    if sorted(checked) != [2, 3, SW_WIDE, SW_WIDE]:
+        raise AssertionError(f"K1 checked on chunks of {checked} windows")
+    del prob, mask
+    for name, model, res_only in (("CTUNet res head", ctunet, True), ("TUNet", tunet, False)):
+        tree = tree_launches(model, res_only=res_only)
+        tree["scatter_add_windows"] = 0
+        eval_chunk(f"{name}, {SW_WIDE} windows", model, device, tree, SW_WIDE, res_only)
+    useful = bench.useful_flops_per_volume(ct8, tu8)
+    timed = {CHUNK: [], SW_WIDE: []}
+    for sw in (CHUNK, SW_WIDE, SW_WIDE, CHUNK):
+        timed[sw].append(bench.time_hybrid(*engines[sw], volume, reps=1))
+    hybrid = {}
+    for sw, runs in timed.items():
+        secs = [r["seconds_per_volume"][0] for r in runs]
+        hybrid[sw] = {"seconds_per_volume": secs,
+                      "ctunet_seconds_per_volume": [r["ctunet_seconds_per_volume"][0] for r in runs],
+                      "tunet_seconds_per_volume": [r["tunet_seconds_per_volume"][0] for r in runs],
+                      "peak_mem_bytes": max(r["peak_mem_bytes"] for r in runs),
+                      "mfu": useful / (statistics.mean(secs) * flops.H100_BF16_FLOP_PER_S)}
+        log(f"  sw {sw}: hybrid {secs!r} s (CTUNet {hybrid[sw]['ctunet_seconds_per_volume']!r}, "
+            f"TUNet {hybrid[sw]['tunet_seconds_per_volume']!r}), peak {hybrid[sw]['peak_mem_bytes']} "
+            f"B; {useful / 1e12!r} useful TFLOP a volume -> MFU {hybrid[sw]['mfu']!r}")
+
+    log("  (b) cli.mfu")
+    reports = [mfu.report(which, sw, model=model)
+               for sw in (CHUNK, SW_WIDE) for which, model in (("tunet", tunet), ("ctunet", ctunet))]
+
+    log("  (c) profile_device, traced kernel records against the launch counters")
+    profiles = {}
+    for name, engine in zip(("ctunet", "tunet"), engines[CHUNK]):
+        prof = bench.profile_half(engine, volume)
+        profiles[name] = {k: prof[k] for k in ("wall_s", "kernel_ms", "busy_share",
+                                               "kernel_records")}
+        log(f"  {name} half: wall {prof['wall_s']!r} s, kernels {prof['kernel_ms']!r} ms, busy "
+            f"{prof['busy_share']!r}; records equal to launches {prof['kernel_records']}")
+        log(json.dumps({f"{name}_half_profile": prof}))
+
+    log("  (d) enable_nan_checks")
+    x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
+    x[1, 40, 40, 40, 0] = float("nan")
+    enable_nan_checks(True)
+    try:
+        with torch.inference_mode():
+            tunet(x)
+        raise AssertionError("a NaN in the chunk did not raise under enable_nan_checks")
+    except FloatingPointError as e:
+        caught = str(e)
+    finally:
+        enable_nan_checks(False)
+    with torch.inference_mode():
+        tunet(x)
+    torch.cuda.synchronize()
+    log(f"  planted NaN caught: {caught}; with the checks off the chunk runs")
+    del ctunet, tunet, engines, ct8, tu8
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"  phase 9: {wall!r} s")
+    return {"sw8_launches": counts8, "hybrid_by_sw": hybrid, "useful_tflop_per_volume": useful / 1e12,
+            "mfu_reports": reports, "profiles": profiles, "nan_check": caught, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -1734,6 +1843,9 @@ def main() -> int:
     log(f"  phase 8: {time.perf_counter() - t8!r} s")
     work_dir.cleanup()
 
+    log("phase 9: the measuring layer (sw 8, MFU, traced records, NaN checks)")
+    meas = phase_measure(device)
+
     entries = []
     for info in kernels.KERNELS:
         entries.append({
@@ -1746,6 +1858,7 @@ def main() -> int:
             "dropout_train_launches_per_step": drop["launches_per_step"][info.name],
             "batchnorm_train_launches_per_step": bn["launches_per_step"][info.name],
             "ddp_train_launches_per_step": ddp["launches_per_step"][info.name],
+            "sw8_launches": meas["sw8_launches"][info.name],
         })
     log(json.dumps({
         "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
@@ -1763,6 +1876,7 @@ def main() -> int:
         "train_batchnorm": {k: bn[k] for k in ("seconds_per_step", "mean_s", "losses",
                                                "peak_mem_bytes")},
         "ddp": {k: v for k, v in ddp.items() if k != "launches_per_step"},
+        "measure": {k: v for k, v in meas.items() if k != "sw8_launches"},
         "wall_s": time.perf_counter() - start,
     }))
     log(card)

@@ -25,11 +25,14 @@ port imports ``torch`` and numpy only, never ``jax`` or ``flax``.
                 reference-format checkpoints, the training loop.
 - ``eval``    — per-organ Dice and HD95, largest-connected-component
                 postprocessing, the dice.txt report.
-- ``kernels`` — nvcc build of ``csrc/*.cu`` into ctypes libraries, and the
-                table of kernels with their launch counts.
+- ``kernels`` — nvcc build of ``csrc/*.cu`` into ctypes libraries, the
+                table of kernels with their launch counts, and the check of
+                a trace's kernel records against those counts.
 - ``utils``   — weight carry-over from the JAX parameter trees, random init,
-                scalar logging.
+                scalar logging; tracing, step timing and NaN checks
+                (``profiling``); the useful FLOPs of a chunk (``flops``).
 - ``cli``     — ``bench``: the Hybrid-CTUNet ensemble on one volume;
+                ``mfu``: useful FLOPs and MFU of the bench's models;
                 ``train_main``: the reference's training entry point;
                 ``test_main``: its evaluation entry points;
                 ``kernel_variants``: kernel design variants timed on the

@@ -231,12 +231,16 @@ __global__ void __launch_bounds__(THREADS) scatter_rows(float* __restrict__ acc,
   }
 }
 
+constexpr int STATIC_SMEM = 2 * sizeof(Item) + 2 * sizeof(uint64_t);  // scatter_rows' items, bars
+
 template <typename T, int KC>
 int launch(float* acc, const T* pred, const float* imp, const Windows& win, const Geometry& g,
            cudaStream_t s) {
   const int smem = 2 * g.G * (g.pred_row + g.imp_row);
   auto kernel = scatter_rows<T, KC>;
-  if (smem > 48 * 1024) {
+  // the 48 KB a block may use without opting in counts the static items and
+  // barriers too, and the dynamic ring's 128-byte alignment after them
+  if (smem + STATIC_SMEM + 128 > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }

@@ -15,17 +15,19 @@ stream), allocates nothing, does not synchronise, and returns
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import importlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,36 +49,48 @@ class KernelInfo:
     module: str  # module of this package that holds the wrapper
     source: str  # CUDA source, relative to the repository root
     replaces: str  # the Pallas kernel it ports (file:line in the JAX package)
+    # the __global__ functions one counted launch runs exactly one of (a
+    # packing or filter launch beside it is not counted)
+    symbols: Tuple[str, ...]
 
 
 KERNELS: Tuple[KernelInfo, ...] = (
     KernelInfo("scatter_add_windows", "ops.scatter",
                "hybrid_ctunet_tpu_torch/csrc/scatter.cu",
-               "hybrid_ctunet_tpu/ops/scatter_pallas.py:108"),
+               "hybrid_ctunet_tpu/ops/scatter_pallas.py:108",
+               ("scatter_rows",)),
     KernelInfo("window_attention", "ops.attention",
                "hybrid_ctunet_tpu_torch/csrc/window_attention.cu",
-               "hybrid_ctunet_tpu/ops/attention_pallas.py:68"),
+               "hybrid_ctunet_tpu/ops/attention_pallas.py:68",
+               ("window_attention_kernel",)),
     KernelInfo("ffn", "ops.ffn",
                "hybrid_ctunet_tpu_torch/csrc/ffn.cu",
-               "hybrid_ctunet_tpu/ops/ffn_pallas.py:227"),
+               "hybrid_ctunet_tpu/ops/ffn_pallas.py:227",
+               ("ffn_kernel",)),
     KernelInfo("ffn_pair", "ops.ffn",
                "hybrid_ctunet_tpu_torch/csrc/ffn.cu",
-               "hybrid_ctunet_tpu/ops/ffn_pallas.py:153"),
+               "hybrid_ctunet_tpu/ops/ffn_pallas.py:153",
+               ("pair_kernel",)),
     KernelInfo("pixel_shuffle_linear", "ops.shuffle",
                "hybrid_ctunet_tpu_torch/csrc/pixel_shuffle.cu",
-               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:111"),
+               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:111",
+               ("shuffle_kernel",)),
     KernelInfo("transp_conv_kxs", "ops.shuffle",
                "hybrid_ctunet_tpu_torch/csrc/transp_conv.cu",
-               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:240"),
+               "hybrid_ctunet_tpu/ops/shuffle_pallas.py:240",
+               ("transp_conv_kernel",)),
     KernelInfo("pixelweight", "ops.pixelweight",
                "hybrid_ctunet_tpu_torch/csrc/pixelweight.cu",
-               "hybrid_ctunet_tpu/ops/pixelweight.py:128"),
+               "hybrid_ctunet_tpu/ops/pixelweight.py:128",
+               ("pixelweight_kernel",)),
     KernelInfo("instance_norm", "ops.norm",
                "hybrid_ctunet_tpu_torch/csrc/instance_norm.cu",
-               "hybrid_ctunet_tpu/ops/norm_pallas.py:45"),
+               "hybrid_ctunet_tpu/ops/norm_pallas.py:45",
+               ("in_onchip_kernel", "in_normalize_kernel")),
     KernelInfo("conv3x3_winograd", "ops.winograd",
                "hybrid_ctunet_tpu_torch/csrc/winograd.cu",
-               "hybrid_ctunet_tpu/ops/winograd_pallas.py:210"),
+               "hybrid_ctunet_tpu/ops/winograd_pallas.py:210",
+               ("wino_kernel",)),
 )
 
 
@@ -92,6 +106,47 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {info.name: wrapper(info).launches for info in KERNELS}
+
+
+def traced_counts(names: Iterable[str]) -> Dict[str, int]:
+    """Records of each kernel among the device-kernel names of a trace (one
+    name a record), matched by the kernel's CUDA symbols."""
+    pats = {info.name: re.compile(r"(?:^|[\s:])(?:%s)[<(]" % "|".join(info.symbols))
+            for info in KERNELS}
+    counts = dict.fromkeys(pats, 0)
+    for name in names:
+        for kernel, pat in pats.items():
+            if pat.search(name):
+                counts[kernel] += 1
+    return counts
+
+
+def reconcile(traced: Mapping[str, int], launched: Mapping[str, int]) -> None:
+    """Raise unless a trace holds one record per counted launch of every
+    kernel: a trace that lost records would report a partial table."""
+    diff = {k: (traced.get(k, 0), n) for k, n in launched.items() if traced.get(k, 0) != n}
+    if diff:
+        raise RuntimeError("the trace's kernel records differ from the launch counters "
+                           f"(kernel: (traced, launched)): {diff}")
+
+
+@contextlib.contextmanager
+def gates_off():
+    """Every kernel module's gate declines while this stands, so each site
+    takes its plain version."""
+    from ..ops import attention, ffn, norm, pixelweight, shuffle, winograd
+
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (attention, "supports"), (ffn, "supports"), (ffn, "pair_supports"),
+        (shuffle, "supports"), (shuffle, "transp_supports"), (pixelweight, "supports"),
+        (norm, "supports"), (winograd, "supports"))]
+    for m, n, _ in saved:
+        setattr(m, n, lambda *a, **k: False)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
 
 
 def _nvcc() -> str:

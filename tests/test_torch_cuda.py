@@ -85,6 +85,15 @@ def test_scatter_rows_in_groups(dev, dtype):
     assert torch.equal(got, scatter.reference_scatter_add_windows(acc.clone(), pred, imp, starts))
 
 
+def test_scatter_rows_at_the_shared_memory_limit(dev):
+    """8 bf16 windows of rz 96, C 14 (a chunk of the bench at sw 8): a ring
+    of exactly 48 KB, which with the kernel's static shared memory needs the
+    opt-in."""
+    acc, pred, imp, starts = _scatter_case(dev, 8, (10, 9, 100), (4, 4, 96), 14, 8)
+    got = scatter.scatter_add_windows(acc.clone(), pred, imp, starts)
+    assert torch.equal(got, scatter.reference_scatter_add_windows(acc.clone(), pred, imp, starts))
+
+
 def _attention_inputs(gen, n, window, c, dev, ld=None):
     """q (pre-scaled), k, v as strided row views of one qkv tensor whose rows
     are ``ld`` >= 3c wide, and a ((2w-1)^3, heads) fp32 table."""
