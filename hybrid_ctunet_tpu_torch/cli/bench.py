@@ -38,6 +38,7 @@ import torch
 from .. import kernels
 from ..infer.sliding_window import SlidingWindowEngine
 from ..models import CTUNet, TUNet
+from ..models.layers import remat_blocks
 from ..utils import flops
 from ..utils.params import random_init_
 from ..utils.profiling import StepTimer, trace
@@ -260,6 +261,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("error: this benchmark needs a CUDA device", file=sys.stderr)
         return 1
+    with remat_blocks(False):  # an inference-only process (the JAX bench.py:49)
+        return _bench(args)
+
+
+def _bench(args) -> int:
     set_precision_flags()
     device = torch.device("cuda", 0)
     ct_engine = make_ctunet_engine(build_ctunet(args.seed, device), sw=args.sw_ct)

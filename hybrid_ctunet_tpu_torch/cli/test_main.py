@@ -26,6 +26,7 @@ the outputs, and returns the result.
 """
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -39,6 +40,7 @@ from ..data.nifti import save_nifti
 from ..data.transforms import invert_to_native
 from ..eval import com_dice, com_hd, determine_postprocessing, per_organ_dice, write_dice_report
 from ..infer.sliding_window import SlidingWindowEngine
+from ..models.layers import remat_blocks
 from ..parallel.mesh import is_main_process, launch, rank_and_world
 from .args import build_test_parser
 from .factory import build_model, check_supported, load_eval_weights, select_device
@@ -153,12 +155,20 @@ def _load(args, device, model_name, path):
     return model.eval()
 
 
+def _without_remat(entry, args):
+    """``entry(args)`` with block remat off: evaluation never
+    differentiates (the JAX ``cli/test_main.py:29``)."""
+    with remat_blocks(False):
+        return entry(args)
+
+
 def _run(entry, args):
     """``entry(args)`` here, or in every rank under ``--distributed``
     (rank 0's result)."""
     args.test_mode = True
     check_supported(args)
     select_device(args)
+    entry = functools.partial(_without_remat, entry)
     return launch(entry, args) if args.distributed else entry(args)
 
 

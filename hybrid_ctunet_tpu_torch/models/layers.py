@@ -14,9 +14,17 @@ only in train mode; there it takes its plain version with the masks applied
 where JAX applies them, and elsewhere its kernel as without dropout, so no
 kernel takes a mask. The masks come from the generator that
 :func:`set_dropout_generator` gives the model's :class:`Dropout` modules.
+
+Rematerialization (``maybe_remat``, the JAX ``models/layers.py:80,97-107``,
+on by default) wraps exactly the JAX package's sites: every decoder
+``ResBlock``, the TUNet stem ``ResBlock``, every ViT block and each ResNet
+stage's bottlenecks after the first. A wrapped block's activations are
+recomputed in the backward, its dropout masks drawn again from the same
+generator state and its BatchNorm buffers updated once.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -27,6 +35,7 @@ from ..ops import dropout as dropout_ops
 from ..ops import ffn as ffn_ops
 from ..ops import norm as norm_ops
 from ..ops import pixelweight as pixelweight_ops
+from ..ops import recompute as recompute_ops
 from ..ops import shuffle as shuffle_ops
 from ..ops.act import leaky_relu
 from ..ops.conv import _triple, conv3d_same, conv_transpose3d_same
@@ -77,6 +86,47 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
+_REMAT_BLOCKS = True
+
+
+def set_remat_blocks(enabled: bool) -> None:
+    """Global switch for block-level rematerialization, read at each call.
+    On by default, as in the JAX package: a wrapped block keeps only its
+    inputs for the backward and runs its forward again there. The eval and
+    bench entries switch it off."""
+    global _REMAT_BLOCKS
+    _REMAT_BLOCKS = bool(enabled)
+
+
+@contextlib.contextmanager
+def remat_blocks(enabled: bool):
+    """The switch set to ``enabled`` while the context stands."""
+    before = _REMAT_BLOCKS
+    set_remat_blocks(enabled)
+    try:
+        yield
+    finally:
+        set_remat_blocks(before)
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward
+    (``ops.recompute.checkpoint``), the generators of its active dropout
+    sites replayed there."""
+    generators = {id(m.generator): m.generator for m in module.modules()
+                  if isinstance(m, Dropout) and m.active() and m.generator is not None}
+    return recompute_ops.checkpoint(module, *args, generators=list(generators.values()))
+
+
+def maybe_remat(module: nn.Module, *args):
+    """``module(*args)``: rematerialized (:func:`remat`) while the switch is
+    on and autograd records, called directly otherwise, so that inference
+    pays nothing."""
+    if _REMAT_BLOCKS and torch.is_grad_enabled():
+        return remat(module, *args)
+    return module(*args)
+
+
 class ConvNorm(nn.Module):
     """The norm after a conv, ``--norm_name`` (the JAX ``apply_norm``,
     ``models/layers.py:52``), + LeakyReLU 0.01 when ``act``.
@@ -110,7 +160,7 @@ class ConvNorm(nn.Module):
             return instance_norm_act(x, self.act)
         y = norm_ops.batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
                                 training=self.training, sync=self.sync)
-        if self.training:
+        if self.training and not recompute_ops.recomputing():
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
         return leaky_relu(y) if self.act else y
@@ -431,7 +481,7 @@ class UpCatConvBlock(nn.Module):
                                    dtype=dtype, device=device)
 
     def forward(self, x, skip):
-        return self.conv_block(self.transp_conv(x), skip)
+        return maybe_remat(self.conv_block, self.transp_conv(x), skip)
 
 
 class UpConvBlock(nn.Module):
@@ -447,7 +497,7 @@ class UpConvBlock(nn.Module):
                                    dtype=dtype, device=device)
 
     def forward(self, x):
-        return self.conv_block(self.transp_conv(x))
+        return maybe_remat(self.conv_block, self.transp_conv(x))
 
 
 class Up2FusionBlock(nn.Module):
@@ -467,9 +517,10 @@ class Up2FusionBlock(nn.Module):
         self.up_addconv_block2 = ResBlock(features, features, kernel_size, 1, norm_name, **kw)
 
     def forward(self, x, skip_conv, skip_vit):
-        skip = self.up_addconv_block1(self.pixelweight_attention1(skip_conv, skip_vit))
+        skip = maybe_remat(self.up_addconv_block1,
+                           self.pixelweight_attention1(skip_conv, skip_vit))
         out = self.pixelweight_attention2(self.transp_conv(x), skip)
-        return self.up_addconv_block2(out)
+        return maybe_remat(self.up_addconv_block2, out)
 
 
 class CatConvBlock(nn.Module):
@@ -482,7 +533,7 @@ class CatConvBlock(nn.Module):
                                    device=device)
 
     def forward(self, x, skip):
-        return self.conv_block(x, skip)
+        return maybe_remat(self.conv_block, x, skip)
 
 
 class UnetOutHead(nn.Module):

@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops.act import leaky_relu
 from ..ops.conv import _triple
-from .layers import Conv3d, ConvNorm
+from .layers import Conv3d, ConvNorm, maybe_remat
 
 LAYER_COUNTS = {
     50: (3, 4, 6, 3),
@@ -93,6 +93,7 @@ class ResNet3D(nn.Module):
         h = self.norm1(self.conv1(x))
         features = []
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            h = stage(h)
+            for i, block in enumerate(stage):  # after the first, the JAX remat-scanned tail
+                h = maybe_remat(block, h) if i else block(h)
             features.append(h)
         return features

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .decoder_attention import UpAttentionBlock
-from .layers import CatConvBlock, Dense, ResBlock, UnetOutHead
+from .layers import CatConvBlock, Dense, ResBlock, UnetOutHead, maybe_remat
 from .vit3d import ViT3D
 
 DIMS = (128, 256, 512, 1024)
@@ -80,7 +80,7 @@ class TUNetCore(nn.Module):
 
     def heads(self, x, pyramid):
         """Conv stem, full-resolution decoder, and the two output heads."""
-        stem = self.vit_encoder0.layer(x)
+        stem = maybe_remat(self.vit_encoder0.layer, x)
         fused = self.vit_decoder0(pyramid[-1], stem)
         return self.vit_out(fused), self.decoder_linear_96x96.head(pyramid[-1])
 

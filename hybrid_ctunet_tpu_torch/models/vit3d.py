@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import Dense, Dropout, FeedForward, LayerNorm, _empty
+from .layers import Dense, Dropout, FeedForward, LayerNorm, _empty, maybe_remat
 
 
 class ViTAttention(nn.Module):
@@ -112,5 +112,5 @@ class ViT3D(nn.Module):
         t = self.to_patch_embedding(t)
         t = self.emb_dropout(t + self.pos_embedding.to(self.dtype))
         for block in self.transformer:
-            t = block(t)
+            t = maybe_remat(block, t)
         return t  # (B, N, dim), token order (h w f)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .act import leaky_relu
-from .recompute import recompute
+from .recompute import recompute, recomputing
 
 _THREADS = 256  # csrc/instance_norm.cu: threads per block
 _SMS = 132  # H100 SXM streaming multiprocessors
@@ -206,7 +206,9 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``momentum``, in place; in eval the running buffers normalize. Returns
     ``x``'s dtype. Plain PyTorch: the JAX package has no BatchNorm kernel.
     The training path keeps only ``x`` for the backward, which recomputes
-    the statistics (and their all-reduce under ``sync``)."""
+    the statistics (and their all-reduce under ``sync``). A rematerialized
+    block's recompute (``recomputing()``) leaves the buffers as its forward
+    set them."""
     if not training:
         return _batch_normalize(x.float(), running_mean, running_var, weight, bias,
                                 eps).to(x.dtype)
@@ -219,9 +221,10 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     def run(x, weight, bias):
         xf = x.float()
         mean, var, n = _batch_moments(xf, sync)
-        with torch.no_grad():
-            running_mean.mul_(1.0 - momentum).add_(momentum * mean)
-            running_var.mul_(1.0 - momentum).add_(momentum * var * (n / (n - 1.0)))
+        if not recomputing():
+            with torch.no_grad():
+                running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+                running_var.mul_(1.0 - momentum).add_(momentum * var * (n / (n - 1.0)))
         return _batch_normalize(xf, mean, var, weight, bias, eps).to(x.dtype)
 
     return recompute(run, plain, x, weight, bias)

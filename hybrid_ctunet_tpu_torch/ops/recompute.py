@@ -8,12 +8,20 @@ differentiates the plain reference (``attention_pallas.py:92-106``,
 ``:239-266``, ``pixelweight.py:177-197``, ``norm_pallas.py:98-114``,
 ``winograd_pallas.py:273-289`` and ``:339-361``). No backward kernel exists:
 the gradients are exactly the plain path's. Launch counts are the forward's.
+
+:func:`checkpoint` rematerializes a whole region (the JAX ``nn.remat`` and
+``jax.checkpoint``): its activations are dropped after the forward and the
+region runs again in the backward, kernels included (a kernel launched
+inside it launches again then).
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import threading
+from typing import Callable, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 
 class _Recompute(torch.autograd.Function):
@@ -47,3 +55,44 @@ def recompute(run: Callable, plain: Callable, *inputs: torch.Tensor):
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
         return run(*inputs)
     return _Recompute.apply(run, plain, *inputs)
+
+
+_LOCAL = threading.local()  # the backward's recompute runs on autograd's thread
+
+
+def recomputing() -> bool:
+    """True while a :func:`checkpoint` region runs again in the backward.
+    State that a forward updates once (BatchNorm's running buffers) is left
+    as it is then, as the JAX package keeps the forward's ``batch_stats``
+    and drops the recompute's."""
+    return getattr(_LOCAL, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _replay(generators: Sequence[torch.Generator], states):
+    """The recompute's context: each generator set back to its state at the
+    region's entry, so that the region draws its forward's dropout masks
+    again, and returned after to the state it had."""
+    now = [g.get_state() for g in generators]
+    for g, s in zip(generators, states):
+        g.set_state(s)
+    _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _LOCAL.depth -= 1
+        for g, s in zip(generators, now):
+            g.set_state(s)
+
+
+def checkpoint(fn: Callable, *args, generators: Sequence[torch.Generator] = ()):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept. Non-reentrant ``torch.utils.checkpoint``: the reentrant form breaks
+    DDP with ``find_unused_parameters``. ``generators``: the explicit
+    ``torch.Generator``s that ``fn`` draws from (its dropout sites'), which
+    ``preserve_rng_state`` would not restore: their states at the entry are
+    replayed in the recompute. Nothing here draws from the global RNG."""
+    states = [g.get_state() for g in generators]
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _replay(generators, states)))

@@ -51,6 +51,16 @@ def zoom_nearest(x: torch.Tensor, zoom: Sequence[float]) -> torch.Tensor:
     return x
 
 
+def resample_3d_nearest(x: torch.Tensor, target_size: Sequence[int]) -> torch.Tensor:
+    """A 3D volume resampled to ``target_size`` by nearest lookup (reference
+    trainer_CTUNet.py:43-48 ``resample_3d``)."""
+    if x.ndim != 3:
+        raise ValueError(f"expected a 3D volume, got {tuple(x.shape)}")
+    for axis, out_size in enumerate(target_size):
+        x = torch.index_select(x, axis, _device_indices(x.shape[axis], int(out_size), x.device))
+    return x
+
+
 def downscale_labels(labels: torch.Tensor, spatial_zoom: Tuple[float, float, float]) -> torch.Tensor:
     """Deep-supervision target of channels-last (B, X, Y, Z[, 1]) labels: the
     reference's zoom with factors (1, 1, zx, zy, zz) in NCDHW."""

@@ -17,7 +17,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from ..train.steps import TrainStep
+from ..train.steps import Rematerialized, TrainStep
 from .mesh import rank_and_world
 
 
@@ -46,13 +46,14 @@ class DPTrainStep(TrainStep):
 def make_dp_train_step(model_name: str, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer, *, smooth_nr: float = 0.0,
                        smooth_dr: float = 1e-6, grad_accum: int = 1,
-                       start_step: int = 0) -> DPTrainStep:
+                       start_step: int = 0, remat: bool = False) -> DPTrainStep:
     """The data-parallel :class:`DPTrainStep` of ``model_name``. The model is
-    wrapped in DDP here; ``model`` itself stays unwrapped for validation and
-    checkpoints."""
+    wrapped in DDP here (in :class:`Rematerialized` first under ``remat``);
+    ``model`` itself stays unwrapped for validation and checkpoints."""
     device = next(model.parameters()).device
     ddp = DistributedDataParallel(
-        model, device_ids=[device.index] if device.type == "cuda" else None,
+        Rematerialized(model) if remat else model,
+        device_ids=[device.index] if device.type == "cuda" else None,
         find_unused_parameters=True)
     return DPTrainStep(model_name, ddp, optimizer, smooth_nr=smooth_nr, smooth_dr=smooth_dr,
                        grad_accum=grad_accum, rank=rank_and_world()[0], start_step=start_step)

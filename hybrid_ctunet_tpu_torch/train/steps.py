@@ -22,6 +22,10 @@ device, reseeded for each microbatch from (``DROPOUT_SEED``, ``rank``, step,
 microbatch): the JAX step folds the step and the microbatch into
 ``PRNGKey(0)`` (``train/steps.py:119-122,169-173``) and its DP step the
 shard index (``parallel/dp.py:51-55``). Masks cannot equal JAX's.
+
+``remat``: the whole forward is rematerialized in the backward (the JAX
+``compute_grads(remat=True)``'s ``jax.checkpoint``), on top of the blocks
+that ``models.layers.maybe_remat`` wraps.
 """
 from __future__ import annotations
 
@@ -30,8 +34,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..models.layers import Dropout, set_dropout_generator
+from ..models.layers import Dropout, remat, set_dropout_generator
 from ..ops.losses import dice_ce_loss
 from ..ops.resize import downscale_labels
 from .state import set_learning_rate
@@ -83,6 +88,19 @@ def dropout_seed_of(rank: int, step: int, microbatch: int) -> int:
                .generate_state(1, np.uint64)[0] >> 1)
 
 
+class Rematerialized(nn.Module):
+    """``model`` whose whole forward is rematerialized in the backward
+    (:func:`models.layers.remat`). Under DDP it goes inside the wrapper:
+    a DDP forward must not run again in the backward."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return remat(self.model, x)
+
+
 class TrainStep:
     """``step(image, label, lr) -> {"loss": ..., **aux}``: tensors on
     ``image``'s device, detached; the model's parameters, buffers and the
@@ -90,12 +108,18 @@ class TrainStep:
     ``DistributedDataParallel``); its gradients are then synced once a
     step, at the last microbatch. ``self.step`` counts the steps taken,
     from ``start_step`` (a resumed run's saved count, so that it draws new
-    masks, as the JAX step's restored ``state.step`` does)."""
+    masks, as the JAX step's restored ``state.step`` does). ``remat``:
+    the forward runs through :class:`Rematerialized` (not for a DDP
+    ``model``: ``parallel.dp.make_dp_train_step`` wraps it inside)."""
 
     def __init__(self, model_name: str, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, *, smooth_nr: float = 0.0,
                  smooth_dr: float = 1e-6, grad_accum: int = 1, rank: int = 0,
-                 start_step: int = 0):
+                 start_step: int = 0, remat: bool = False):
+        if remat:
+            if hasattr(model, "no_sync"):
+                raise ValueError("remat of a DDP model: wrap its module in Rematerialized")
+            model = Rematerialized(model)
         self.loss_impl = LOSS_FNS[model_name]
         self.model, self.optimizer = model, optimizer
         self.loss_kw = dict(smooth_nr=smooth_nr, smooth_dr=smooth_dr)
@@ -134,7 +158,7 @@ class TrainStep:
 
 def make_train_step(model_name: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     *, smooth_nr: float = 0.0, smooth_dr: float = 1e-6, grad_accum: int = 1,
-                    rank: int = 0, start_step: int = 0) -> TrainStep:
+                    rank: int = 0, start_step: int = 0, remat: bool = False) -> TrainStep:
     """The train step of ``model_name`` (see :class:`TrainStep`)."""
     return TrainStep(model_name, model, optimizer, smooth_nr=smooth_nr, smooth_dr=smooth_dr,
-                     grad_accum=grad_accum, rank=rank, start_step=start_step)
+                     grad_accum=grad_accum, rank=rank, start_step=start_step, remat=remat)

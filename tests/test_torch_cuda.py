@@ -487,3 +487,46 @@ def test_kernel_backward_is_the_plain_backward(dev):
                 assert rel <= 1e-6, (name, rel)
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+def test_remat_step_equals_plain_step_on_the_card(dev):
+    """A bf16 CUNet (depth 50, 32^3) train step with block remat against
+    the step without: the gradients bit for bit (cuDNN deterministic), and
+    K8 and K9 launched once more for each site of a rematerialized block
+    (the ResBlocks and each stage's bottlenecks after the first)."""
+    import copy
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.models import CUNet, layers, resnet3d
+    from hybrid_ctunet_tpu_torch.train import state, steps
+    from hybrid_ctunet_tpu_torch.utils.params import random_init_
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn(gen, 2, 32, 32, 32, 1, dev=dev)
+    y = torch.randint(0, 3, (2, 32, 32, 32, 1), generator=gen, device=dev)
+    base = random_init_(CUNet(out_channels=3, model_depth=50, dtype=BF, device=dev), 0)
+    wrapped = [m for m in base.modules() if isinstance(m, layers.ResBlock)]
+    wrapped += [b for s in range(1, 5) for b in list(getattr(base.convnet, f"layer{s}"))[1:]]
+    norms = sum(isinstance(m, layers.ConvNorm) for w in wrapped for m in w.modules())
+    k9 = sum(isinstance(m, resnet3d.Bottleneck) and m.conv2.conv.weight.shape[1] == 32
+             and m.conv2.stride == (1, 1, 1) for m in wrapped)
+    grads, counts = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for enabled in (True, False):
+            model = copy.deepcopy(base)
+            step = steps.make_train_step("cunet", model,
+                                         state.make_optimizer(model.parameters(), "adamw"))
+            kernels.reset_launch_counts()
+            with layers.remat_blocks(enabled):
+                step(x, y, 0.0)
+            torch.cuda.synchronize()
+            counts[enabled] = kernels.launch_counts()
+            grads[enabled] = [p.grad for p in model.parameters()]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    assert counts[False]["conv3x3_winograd"] > 0 and k9 > 0
+    assert counts[True]["instance_norm"] == counts[False]["instance_norm"] + norms
+    assert counts[True]["conv3x3_winograd"] == counts[False]["conv3x3_winograd"] + k9

@@ -13,8 +13,11 @@ from hybrid_ctunet_tpu.infer.sliding_window import SlidingWindowEngine as JEngin
 from hybrid_ctunet_tpu.infer.sliding_window import _pad_amounts as j_pad_amounts
 from hybrid_ctunet_tpu_torch.infer.sliding_window import (
     SlidingWindowEngine, _pad_amounts, dense_patch_starts, get_scan_interval,
+    sliding_window_inference,
 )
+from hybrid_ctunet_tpu_torch.ops.resize import resample_3d_nearest
 from hybrid_ctunet_tpu.infer import sliding_window as j_sw
+from hybrid_ctunet_tpu.ops.resize import resample_3d_nearest as j_resample
 
 W = np.array([[0.5, -1.25, 2.0]], np.float32)  # (C_in=1, 3)
 B = np.array([0.25, -0.5, 1.0], np.float32)
@@ -71,6 +74,46 @@ def test_window_grid_matches_jax(size, overlap):
                                   j_sw.dense_patch_starts(padded, roi, interval))
     if size == (256, 256, 128):  # the slice: 147 windows at interval 28
         assert interval == (28, 28, 28) and len(dense_patch_starts(padded, roi, interval)) == 147
+
+
+@pytest.mark.parametrize("mode,sigma", [("constant", 0.125), ("gaussian", 0.25)])
+def test_engine_blend_modes_match_jax(rng, mode, sigma):
+    """``mode`` and ``sigma_scale`` (the JAX engine's :103-160): the
+    constant blend, and a gaussian of another width."""
+    roi, size = (32, 32, 32), (40, 32, 45)
+    vol = rng.standard_normal((1, *size, 1)).astype(np.float32)
+    want = JEngine(_jax_predictor(True), roi, sw_batch_size=4, overlap=0.5, mode=mode,
+                   sigma_scale=sigma, num_outputs=2)(jnp.asarray(vol))
+    engine = SlidingWindowEngine(_torch_predictor(True), roi, sw_batch_size=4, overlap=0.5,
+                                 mode=mode, sigma_scale=sigma, num_outputs=2)
+    with torch.inference_mode():
+        got = engine(torch.from_numpy(vol))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        SlidingWindowEngine(_torch_predictor(False), roi, mode="triangle")
+
+
+@pytest.mark.parametrize("two", [False, True])
+def test_sliding_window_inference_matches_jax(rng, two):
+    """The functional form at its defaults (constant blend, overlap 0.25):
+    one map, or a tuple for a two-output predictor."""
+    vol = rng.standard_normal((1, 40, 32, 33, 1)).astype(np.float32)
+    want = j_sw.sliding_window_inference(jnp.asarray(vol), (32, 32, 32), 2, _jax_predictor(two))
+    with torch.inference_mode():
+        got = sliding_window_inference(torch.from_numpy(vol), (32, 32, 32), 2,
+                                       _torch_predictor(two))
+    got, want = (got, want) if two else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,target", [((9, 7, 5), (18, 3, 5)), ((96, 96, 96), (40, 41, 97))])
+def test_resample_3d_nearest_matches_jax(shape, target):
+    x = np.random.default_rng(2).integers(0, 14, shape).astype(np.int32)
+    got = resample_3d_nearest(torch.from_numpy(x), target).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_resample(jnp.asarray(x), target)))
 
 
 def test_engine_rejects_bad_volume():
