@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    params).
 6. Training (main_CTUNet.py): every kernel's
    autograd.Function against its plain path's backward at the training
-   shapes; the full-width CTUNet trained on --synthetic data through the
+   shapes (CUNet's decoder sites included); the full-width CTUNet trained
+   on --synthetic data through the
    port's train step at batch 4 x 96^3 in bf16 with block remat on (the
    default) and off, one warm-up each and 5 timed steps each in turns,
    s/step and peak memory of each, launches per step equal to the module
@@ -94,6 +95,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    half with every kernel's traced records equal to its launch counter (as
    in the profiled steps of phases 6 and 8b); ``utils.profiling.
    enable_nan_checks`` catching a NaN planted in a TUNet chunk.
+10. main_C_TUNet.py's workflow at full width (batch 1 x 4 crops of 96^3,
+   bf16, AdamW, --synthetic): (a) the TUNet (pf 8, 109,904,124 params) and
+   CUNet (ResNet-101, 50,779,754 params) train steps, a warm-up and 3 timed
+   steps each with remat on and off in turns, launches equal to the module
+   tree's, finite losses, s/step and peak memory, one step's gradients with
+   remat against without; (b) ``python -m hybrid_ctunet_tpu_torch.cli.
+   train_main c_tunet --model_name tunet``, then ``cunet``, two epochs with
+   validation, each writing its best-metric file (``model_vit.pt``,
+   ``model_res.pt``) and latest.pt, both loaded back, every kernel of the
+   model launched (K1 in the validation); (c) ``test_single`` on each, on
+   phase 7's case, checked as phase 7's runs, HD95 computed from its saved
+   mask; (d) ``test_final`` on phase 6's trained CTUNet and (b)'s trained
+   TUNet (the README's train, train, evaluate).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -1039,9 +1053,11 @@ def phase_hybrid(tunet, tu_engine, volume, device):
 def grad_cases(device):
     """(name, kernel wrapper, plain path, inputs) of every kernel with a
     backward, at the training step's shapes (a 4-window batch at 96^3):
-    K2 at pyramid stages 0-2, K3 at stage 2, K4 at stage 3, K5 and K6 at
-    their sites' widths, K7 at C 128, K8 at 4x96^3x64 and at the deepest
-    stage, K9 at the ResNet stage-1 conv2 and its fused form at 96^3. The
+    K2 at pyramid stages 0-2, K3 at stage 2, K4 at stage 3, K5 at its
+    site's width, K6 at the three UpCatConvBlock sites of CUNet (decoder 1
+    also the CTUNet's), K7 at C 128, K8 at 4x96^3x64, at the deepest stage
+    and at the UpCatConvBlocks' ResBlocks (with LeakyReLU and without), K9
+    at the ResNet stage-1 conv2 and its fused form at 96^3. The
     plain path of K9 is the direct conv, which its backward differentiates."""
     import torch
     import torch.nn.functional as F
@@ -1077,9 +1093,13 @@ def grad_cases(device):
                   lambda *a: shuffle.reference_shuffle(*a, (2, 2, 1), bf),
                   (randn(CHUNK, 48, 48, 96, 128, dtype=bf), randn(64, 32, std=32 ** -0.5),
                    randn(64, std=0.1))))
-    cases.append(("transp_conv_kxs", lambda *a: shuffle.transp_conv_kxs(*a, bf),
-                  lambda *a: shuffle.reference_transp_conv(*a, bf),
-                  (randn(CHUNK, 24, 24, 48, 256, dtype=bf), randn(256, 128, 2, 2, 2, std=0.03))))
+    # K6 at the CTUNet's decoder-1 site, then CUNet's other UpCatConvBlock sites
+    for shape in ((CHUNK, 24, 24, 48, 256), (CHUNK, 6, 6, 12, 1024), (CHUNK, 12, 12, 24, 512)):
+        cin = shape[-1]
+        cases.append((f"transp_conv_kxs {shape}", lambda *a: shuffle.transp_conv_kxs(*a, bf),
+                      lambda *a: shuffle.reference_transp_conv(*a, bf),
+                      (randn(*shape, dtype=bf),
+                       randn(cin, cin // 2, 2, 2, 2, std=0.03 * (256 / cin) ** 0.5))))
     C = 128
     cases.append(("pixelweight", lambda a, b, *p: pixelweight.pixelweight(a, b, p, bf),
                   lambda a, b, *p: pixelweight.reference_pixelweight(a, b, p, bf),
@@ -1087,13 +1107,17 @@ def grad_cases(device):
                    1.0 + randn(C, std=0.1), randn(C, std=0.1), 1.0 + randn(C, std=0.1),
                    randn(C, std=0.1), randn(3 * C, C, std=C ** -0.5),
                    randn(3 * C, C, std=C ** -0.5), randn(C, C, std=C ** -0.5))))
-    for shape in ((CHUNK, 96, 96, 96, 64), (CHUNK, 6, 6, 12, 1024)):
+    # K8: the stem, the deepest stage, then the ResBlocks of CUNet's
+    # UpCatConvBlocks (decoders 3, 2, 1: norm1 with LeakyReLU, norm2 and norm3
+    # without)
+    ups = ((CHUNK, 12, 12, 24, 512), (CHUNK, 24, 24, 48, 256), (CHUNK, 48, 48, 96, 128))
+    for shape in ((CHUNK, 96, 96, 96, 64), (CHUNK, 6, 6, 12, 1024), *ups):
         cases.append((f"instance_norm_leaky {shape}", norm.instance_norm_leaky,
                       lambda x: F.leaky_relu(norm.reference_instance_norm(x), 0.01),
                       (randn(*shape, dtype=bf, std=2.0, mean=0.5),)))
-    cases.append((f"instance_norm {(CHUNK, 48, 48, 96, 128)}", norm.instance_norm,
-                  norm.reference_instance_norm,
-                  (randn(CHUNK, 48, 48, 96, 128, dtype=bf, std=2.0, mean=0.5),)))
+    for shape in ups[::-1]:
+        cases.append((f"instance_norm {shape}", norm.instance_norm, norm.reference_instance_norm,
+                      (randn(*shape, dtype=bf, std=2.0, mean=0.5),)))
     w = randn(32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5)
     cases.append(("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3,
                   (randn(CHUNK, 48, 48, 96, 32, dtype=bf), w.to(bf))))
@@ -1142,20 +1166,29 @@ def phase_train_grads(device):
     return worst
 
 
-def train_args(extra=()):
-    """main_CTUNet.py's arguments for the slice: ResNet-101, pf 8, the CLI
-    defaults otherwise (ROI 96^3, batch 1 x 4 crops, AMP -> bf16, AdamW)."""
+PARAMS = {"ctunet": CTUNET_PARAMS, "tunet": 109_904_124, "cunet": 50_779_754}
+
+
+def train_args(extra=(), model_name: str = "ctunet"):
+    """The arguments of main_CTUNet.py (``model_name`` "ctunet") or of
+    main_C_TUNet.py with ``--model_name tunet | cunet`` for the slice:
+    ResNet-101, pf 8, the CLI defaults otherwise (ROI 96^3, batch 1 x 4
+    crops, AMP -> bf16, AdamW)."""
     from hybrid_ctunet_tpu_torch.cli.args import build_train_parser
 
-    return build_train_parser("ctunet").parse_args(
-        ["--model_depths", "101", "--patch_frame", "8", *extra])
+    if model_name == "ctunet":
+        return build_train_parser("ctunet").parse_args(
+            ["--model_depths", "101", "--patch_frame", "8", *extra])
+    return build_train_parser("c_tunet").parse_args(
+        ["--model_depths", "101", "--patch_frame", "8", "--model_name", model_name, *extra])
 
 
-def build_train(device, extra=(), steps: int = 12):
-    """The full-width CTUNet of ``train_args(extra)`` on the card, its
-    train step, the LR of epoch 1 and the module tree's launches per step
-    with remat on and off, with the ``--synthetic`` batches (batch_size x 4
-    crops of 96^3 each) of enough epochs for ``steps`` steps."""
+def build_train(device, extra=(), steps: int = 12, model_name: str = "ctunet"):
+    """The full-width model of ``train_args(extra, model_name)`` on the card,
+    its train step, the LR of epoch 1 and the module tree's launches per
+    step with remat on and off, with the ``--synthetic`` batches
+    (batch_size x 4 crops of 96^3 each) of enough epochs for ``steps``
+    steps."""
     import tempfile
 
     from hybrid_ctunet_tpu_torch.cli import factory
@@ -1165,8 +1198,8 @@ def build_train(device, extra=(), steps: int = 12):
     from hybrid_ctunet_tpu_torch.train.steps import make_train_step
 
     with tempfile.TemporaryDirectory() as tmp:
-        args = train_args(["--synthetic", "--data_dir", tmp, *extra])
-        args.model_name = "ctunet"
+        args = train_args(["--synthetic", "--data_dir", tmp, *extra], model_name)
+        args.model_name = model_name
         args.json_list = os.path.basename(write_synthetic_dataset(
             tmp, n_classes=args.out_channels))
         loader, _ = get_loader(args)
@@ -1178,14 +1211,14 @@ def build_train(device, extra=(), steps: int = 12):
             epoch += 1
     model = factory.build_model(args, device)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  CTUNet params {n_params}, batch {args.batch_size} x 4 crops of "
-        f"{(args.roi_x, args.roi_y, args.roi_z)}, {model.dtype} compute, {args.optim_name}"
-        f"{', ' + ' '.join(extra) if extra else ''}")
-    if n_params != CTUNET_PARAMS + 2 * sum(  # BatchNorm: a weight and a bias a channel
+    log(f"  {type(model).__name__} params {n_params}, batch {args.batch_size} x 4 crops of "
+        f"{(args.roi_x, args.roi_y, args.roi_z)}, {factory.model_dtype(args)} compute, "
+        f"{args.optim_name}{', ' + ' '.join(extra) if extra else ''}")
+    if n_params != PARAMS[model_name] + 2 * sum(  # BatchNorm: a weight and a bias a channel
             m.weight.numel() for m in model.modules() if getattr(m, "kind", "") == "batch"):
-        raise AssertionError(f"CTUNet has {n_params} params, expected {CTUNET_PARAMS} + "
-                             "BatchNorm")
-    step = make_train_step("ctunet", model, factory.build_optimizer(args, model),
+        raise AssertionError(f"{model_name} has {n_params} params, expected "
+                             f"{PARAMS[model_name]} + BatchNorm")
+    step = make_train_step(model_name, model, factory.build_optimizer(args, model),
                            smooth_nr=args.smooth_nr, smooth_dr=args.smooth_dr)
     lr = make_epoch_schedule(args.lrschedule, base_lr=args.optim_lr,
                              warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs)(1)
@@ -1230,9 +1263,9 @@ def run_steps(step, lr, trees, batches, device, steps_timed: int, remats=(True, 
         peak = torch.cuda.max_memory_allocated()
         loss = metrics["loss"].item()
         warm = i < len(remats)
+        aux = ", ".join(f"{k} {v.item()!r}" for k, v in metrics.items() if k != "loss")
         log(f"  step {i} remat {'on' if remat else 'off'}{' (warm-up)' if warm else ''}: "
-            f"{dt!r} s, peak {peak} B, loss {loss!r} (loss1 {metrics['loss1'].item()!r}, "
-            f"loss2 {metrics['loss2'].item()!r})")
+            f"{dt!r} s, peak {peak} B, loss {loss!r}{f' ({aux})' if aux else ''}")
         if not math.isfinite(loss):
             raise AssertionError(f"step {i}: loss {loss}")
         check_launches(f"train step {i} (remat {'on' if remat else 'off'})", counts,
@@ -1542,13 +1575,12 @@ def phase_eval(work, ct_dir, tu_dir):
     data, the Dice and HD95 are finite, the report has its HD95 block, the
     masks load back at the case's native shape; seconds per case on the
     device (sliding window, maps to host memory) and on the host (invert,
-    metrics, save)."""
-    import numpy as np
+    metrics, save) (``eval_run``). Returns the runs' numbers, with
+    ``test_final``'s flags under ``"argv"`` and the case's under
+    ``"common"``."""
     import torch
 
-    from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.cli import test_main
-    from hybrid_ctunet_tpu_torch.data.nifti import load_nifti
     from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
     from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
 
@@ -1572,74 +1604,127 @@ def phase_eval(work, ct_dir, tu_dir):
         ("test_ctunet", test_main.test_ctunet, "ct3", [f"--pretrained_dir={ct_dir}"],
          [tree_ct, tree_ct, tree_ct]),
     )
+    out = {name: eval_run(work, data, name, entry, common + argv + [f"--exp_name={exp}"], trees)
+           for name, entry, exp, argv, trees in runs}
+    torch.cuda.empty_cache()
+    out["argv"], out["common"] = common + final, common
+    return out
+
+
+def eval_run(work, data, name, entry, argv, trees):
+    """One eval CLI run (``entry(argv)``, from ``work``: the CLI writes
+    under ``./outputs/<exp_name>``) on ``data``'s validation case under
+    ``eval_hooks``: launches equal to ``trees`` (the module tree of each
+    engine run, in order) times each run's chunks, every engine's first and
+    trailing K1 call bit-exact, the masks at the case's native shape and
+    below 14, finite Dice and HD95 (``test_final``'s, or for ``test_single``
+    and ``test_ctunet`` the rows they return; ``test_single``'s HD95 from
+    its saved mask, as ``test_final`` computes it). Returns the seconds of
+    set-up, device and host, the launches and the metrics' means."""
+    import numpy as np
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.data.nifti import load_nifti
+
     label, _ = load_nifti(os.path.join(data, "labelsTr", "val_000.nii.gz"))
-    out, cwd = {}, os.getcwd()
-    os.chdir(work)  # the CLI writes under ./outputs/<exp_name>
+    exp = next(a for a in argv if a.startswith("--exp_name=")).split("=", 1)[1]
+    record = {"device_s": [], "pipeline_s": [], "runs": [], "k1_checked": []}
+    cwd = os.getcwd()
+    os.chdir(work)
     try:
-        for name, entry, exp, argv, trees in runs:
-            record = {"device_s": [], "pipeline_s": [], "runs": [], "k1_checked": []}
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()  # set-up (reading and preprocessing the case, the
-            # models and their checkpoints) ends at the first dispatch
-            with eval_hooks(record):
-                result = entry(common + argv + [f"--exp_name={exp}"])
-            wall = time.perf_counter() - t0
-            counts = kernels.launch_counts()
-            for grid, n, chunks, heads in record["runs"]:
-                log(f"  {name}: grid {grid}, {n} windows, {chunks} chunks, {heads} map(s)")
-            check_launches(name, counts, [(tree, run[2]) for tree, run in
-                                          zip(trees, record["runs"])])
-            if name == "test_final" and not all(counts.values()):
-                raise AssertionError(f"{name}: a kernel was not launched: {counts}")
-            # each engine run checks its first and its trailing chunk (one
-            # call a canvas each)
-            want_checked = sum(2 * heads for _, _, _, heads in record["runs"])
-            if len(record["k1_checked"]) != want_checked:
-                raise AssertionError(f"{name}: {len(record['k1_checked'])} K1 calls checked, "
-                                     f"expected {want_checked}")
-            setup_s = record["first_dispatch"] - t0
-            device_s = sum(record["device_s"])
-            host_s = wall - setup_s - device_s
-            case_s = sum(record["pipeline_s"]) - device_s
-            log(f"  {name}: {wall!r} s in all, set-up {setup_s!r} s; per case: device "
-                f"{device_s!r} s (sliding window, maps to host memory: {record['device_s']!r}), "
-                f"host {host_s!r} s ({case_s!r} s in the case loop: invert, softmax, save; "
-                f"{host_s - case_s!r} s after it: metrics"
-                f"{' and postprocessing' if 'postprocess' in name else ''}); K1 bit-exact on {len(record['k1_checked'])} "
-                f"first/trailing chunk calls {record['k1_checked']}")
-            out_dir = os.path.join(work, "outputs", exp)
-            masks = sorted(f for f in os.listdir(out_dir) if f.endswith(".nii.gz"))
-            for f in masks:
-                mask, _ = load_nifti(os.path.join(out_dir, f))
-                if mask.shape != label.shape[:3] or mask.max() >= 14:
-                    raise AssertionError(f"{f}: mask {mask.shape} (label {label.shape})")
-            if name.startswith("test_final"):
-                dice, hd = np.asarray(result["dice"]), np.asarray(result["hd95"])
-                text = open(os.path.join(out_dir, "dice.txt")).read()
-                if not (np.isfinite(dice).all() and np.isfinite(hd).all()
-                        and "mean_hd95:" in text and len(masks) == 1):
-                    raise AssertionError(f"{name}: dice {dice}, hd95 {hd}, report or mask missing")
-                log(f"  {name}: mean Dice {float(dice.mean())!r} (raw "
-                    f"{float(np.mean(result['dice_raw']))!r}), mean HD95 {float(hd.mean())!r}; "
-                    f"per-organ Dice {dice.tolist()}")
-                summary = {"mean_dice": float(dice.mean()), "mean_hd95": float(hd.mean())}
-            else:
-                rows = {k: np.asarray(v) for k, v in result.items()}
-                if not (all(np.isfinite(v).all() for v in rows.values()) and len(masks) == 2):
-                    raise AssertionError(f"{name}: rows {rows} or masks {masks}")
-                log(f"  {name}: mean Dice " + ", ".join(
-                    f"{k} {float(v.mean())!r}" for k, v in rows.items()))
-                summary = {k: float(v.mean()) for k, v in rows.items()}
-            out[name] = {"wall_s": wall, "setup_s": setup_s, "device_s": device_s,
-                         "host_s": host_s, "host_invert_save_s": case_s,
-                         "launches": counts, "k1_checked_calls": len(record["k1_checked"]),
-                         **summary}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()  # set-up (reading and preprocessing the case, the
+        # models and their checkpoints) ends at the first dispatch
+        with eval_hooks(record):
+            result = entry(argv)
+        wall = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    torch.cuda.empty_cache()
-    out["argv"] = common + final
-    return out
+    counts = kernels.launch_counts()
+    for grid, n, chunks, heads in record["runs"]:
+        log(f"  {name}: grid {grid}, {n} windows, {chunks} chunks, {heads} map(s)")
+    check_launches(name, counts, [(tree, run[2]) for tree, run in zip(trees, record["runs"])])
+    if len(record["runs"]) != len(trees):
+        raise AssertionError(f"{name}: {len(record['runs'])} engine runs, expected {len(trees)}")
+    launched = {k for tree in trees for k, v in tree.items() if v}
+    if not all(counts[k] for k in launched):
+        raise AssertionError(f"{name}: a kernel of the models was not launched: {counts}")
+    # each engine run checks its first and its trailing chunk (one call a
+    # canvas each)
+    want_checked = sum(2 * heads for _, _, _, heads in record["runs"])
+    if len(record["k1_checked"]) != want_checked:
+        raise AssertionError(f"{name}: {len(record['k1_checked'])} K1 calls checked, "
+                             f"expected {want_checked}")
+    setup_s = record["first_dispatch"] - t0
+    device_s = sum(record["device_s"])
+    host_s = wall - setup_s - device_s
+    case_s = sum(record["pipeline_s"]) - device_s
+    log(f"  {name}: {wall!r} s in all, set-up {setup_s!r} s; per case: device "
+        f"{device_s!r} s (sliding window, maps to host memory: {record['device_s']!r}), "
+        f"host {host_s!r} s ({case_s!r} s in the case loop: invert, softmax, save; "
+        f"{host_s - case_s!r} s after it: metrics"
+        f"{' and postprocessing' if 'postprocess' in name else ''}); K1 bit-exact on "
+        f"{len(record['k1_checked'])} first/trailing chunk calls {record['k1_checked']}")
+    out_dir = os.path.join(work, "outputs", exp)
+    masks = sorted(f for f in os.listdir(out_dir) if f.endswith(".nii.gz"))
+    loaded = []
+    for f in masks:
+        mask, _ = load_nifti(os.path.join(out_dir, f))
+        if mask.shape != label.shape[:3] or mask.max() >= 14:
+            raise AssertionError(f"{f}: mask {mask.shape} (label {label.shape})")
+        loaded.append(mask)
+    if name.startswith("test_final"):
+        dice, hd = np.asarray(result["dice"]), np.asarray(result["hd95"])
+        text = open(os.path.join(out_dir, "dice.txt")).read()
+        if not (np.isfinite(dice).all() and np.isfinite(hd).all()
+                and "mean_hd95:" in text and len(masks) == 1):
+            raise AssertionError(f"{name}: dice {dice}, hd95 {hd}, report or mask missing")
+        log(f"  {name}: mean Dice {float(dice.mean())!r} (raw "
+            f"{float(np.mean(result['dice_raw']))!r}), mean HD95 {float(hd.mean())!r}; "
+            f"per-organ Dice {dice.tolist()}")
+        summary = {"mean_dice": float(dice.mean()), "mean_hd95": float(hd.mean())}
+    elif name.startswith("test_single"):
+        dice = np.asarray(result)
+        t1 = time.perf_counter()
+        hd = organ_hd95(loaded[0], label[..., 0] if label.ndim == 4 else label)
+        hd_s = time.perf_counter() - t1
+        if not (np.isfinite(dice).all() and np.isfinite(hd).all() and len(masks) == 1
+                and os.path.exists(os.path.join(out_dir, "dice.txt"))):
+            raise AssertionError(f"{name}: dice {dice}, hd95 {hd}, report or mask missing")
+        log(f"  {name}: mean Dice {float(dice.mean())!r}, mean HD95 {float(hd.mean())!r} "
+            f"(of the saved mask, {hd_s!r} s); per-organ Dice {dice.ravel().tolist()}")
+        summary = {"mean_dice": float(dice.mean()), "mean_hd95": float(hd.mean()),
+                   "hd95_host_s": hd_s}
+    else:
+        rows = {k: np.asarray(v) for k, v in result.items()}
+        if not (all(np.isfinite(v).all() for v in rows.values()) and len(masks) == 2):
+            raise AssertionError(f"{name}: rows {rows} or masks {masks}")
+        log(f"  {name}: mean Dice " + ", ".join(
+            f"{k} {float(v.mean())!r}" for k, v in rows.items()))
+        summary = {k: float(v.mean()) for k, v in rows.items()}
+    return {"wall_s": wall, "setup_s": setup_s, "device_s": device_s, "host_s": host_s,
+            "host_invert_save_s": case_s, "launches": counts,
+            "k1_checked_calls": len(record["k1_checked"]), **summary}
+
+
+def organ_hd95(mask, label, n_classes: int = 14):
+    """HD95 of each organ of one case, ``eval.metrics.per_organ_hd95``'s
+    numbers, the organs spread over spawned processes (two distance
+    transforms an organ, ~4.5 s each at 256x256x128 on one core)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from hybrid_ctunet_tpu_torch.eval.metrics import hd95
+
+    organs = range(1, n_classes)
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return np.array(list(pool.map(hd95, (mask == c for c in organs),
+                                      (label == c for c in organs))))
 
 
 def free_port() -> int:
@@ -2053,6 +2138,140 @@ def phase_measure(device):
             "mfu_reports": reports, "profiles": profiles, "nan_check": caught, "wall_s": wall}
 
 
+SINGLE_FILES = {"tunet": "model_vit.pt", "cunet": "model_res.pt"}  # trainer.py's names
+
+
+def phase_single_steps(device, model_name: str, steps_timed: int = 3):
+    """10a. The full-width TUNet or CUNet (main_C_TUNet.py ``--model_name``)
+    through the port's train step on --synthetic data, batch 1 x 4 crops of
+    96^3, bf16, AdamW: a warm-up and ``steps_timed`` timed steps with block
+    remat on and off in turns (``run_steps``: launches equal to the module
+    tree's, finite losses, each step's peak), then one step's gradients
+    with remat against without (``remat_check``)."""
+    import torch
+
+    model, step, lr, trees, batches = build_train(device, steps=2 + 2 * steps_timed,
+                                                  model_name=model_name)
+    out, (x, y) = run_steps(step, lr, trees, batches, device, steps_timed)
+    out["remat_check"] = remat_check(model_name, model, step, x, y)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_single_cli(device, work, model_name: str):
+    """10b. ``python -m hybrid_ctunet_tpu_torch.cli.train_main c_tunet
+    --model_name <model_name>`` (main_C_TUNet.py's counterpart, run as the
+    module with ``sys.argv`` set, so that its entry word picks the entry):
+    --synthetic, two epochs, validation at the second, the best-metric file
+    (``model_vit.pt`` or ``model_res.pt``) and latest.pt, each loaded back
+    into a fresh model with finite weights. The kernels launched in the run
+    are those of the model's module tree, K1 (validation) with them. The
+    checkpoints stay in ``work/train_<model_name>`` for 10c and 10d."""
+    import runpy
+
+    import torch
+
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import factory
+    from hybrid_ctunet_tpu_torch.train.checkpoint import load_weights
+
+    logs = os.path.join(work, f"train_{model_name}")
+    argv = ["c_tunet", "--model_name", model_name, "--model_depths", "101", "--patch_frame", "8",
+            "--synthetic", "--max_epochs", "2", "--val_every", "2", "--warmup_epochs", "1",
+            "--save_checkpoint", "--data_dir", os.path.join(work, "train_data"),
+            "--logdir", logs]
+    log(f"  python -m hybrid_ctunet_tpu_torch.cli.train_main {' '.join(argv)}")
+    saved = sys.argv
+    sys.argv = ["train_main", *argv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("hybrid_ctunet_tpu_torch.cli.train_main", run_name="__main__")
+        code = None
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    files = sorted(os.listdir(logs))
+    log(f"  exit {code}; {wall!r} s; files {files}; launches {counts}")
+    best_file = SINGLE_FILES[model_name]
+    missing = {best_file, "latest.pt"} - set(files)
+    if code != 0 or missing:
+        raise AssertionError(f"train_main c_tunet exited {code} and did not write "
+                             f"{sorted(missing)}")
+    fresh = factory.build_model(train_args(model_name=model_name), device)
+    tree = tree_launches(fresh, training=True)
+    want = {k for k, v in tree.items() if v} | {"scatter_add_windows"}
+    if {k for k, v in counts.items() if v} != want:
+        raise AssertionError(f"launched {counts}, expected the kernels {sorted(want)}")
+    loaded = {}
+    for f in (best_file, "latest.pt"):
+        ckpt = load_weights(fresh, os.path.join(logs, f))
+        if not all(torch.isfinite(p).all() for p in fresh.parameters()):
+            raise AssertionError(f"{f}: non-finite weights")
+        loaded[f] = {"epoch": ckpt["epoch"], "best_acc": float(ckpt["best_acc"])}
+        log(f"  {f} loads into a fresh {type(fresh).__name__} (epoch {ckpt['epoch']}, best_acc "
+            f"{ckpt['best_acc']!r}, {len(ckpt['state_dict'])} tensors)")
+    if loaded["latest.pt"]["epoch"] != 2:
+        raise AssertionError(f"latest.pt: epoch {loaded['latest.pt']['epoch']}, expected 2")
+    del fresh, ckpt
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": counts, "checkpoints": loaded, "logs": logs}
+
+
+def phase_single(device, work, ct_logs, common):
+    """10. main_C_TUNet.py's workflow at full width (ResNet-101, pf 8, the
+    CLI defaults: batch 1 x 4 crops of 96^3, bf16, AdamW, --synthetic):
+    (a) the TUNet and CUNet train steps (``phase_single_steps``); (b)
+    ``train_main c_tunet --model_name tunet``, then ``cunet``
+    (``phase_single_cli``); (c) ``test_single`` on each run's best-metric
+    file, on phase 7's 256x256x128 case (``eval_run``: launches equal to
+    the tree's times the chunks, K1 bit-exact on each engine's first and
+    trailing chunk, finite Dice and HD95, masks at the native shape, device
+    and host seconds); (d) the README's workflow: ``test_final`` on phase 6's
+    trained CTUNet (``model_res.pt``) and (b)'s trained TUNet."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import test_main
+    from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet, TUNet
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("tunet", "cunet"):
+        log(f"  (a) {name} train steps")
+        out[f"{name}_steps"] = phase_single_steps(device, name)
+    runs = {}
+    for name in ("tunet", "cunet"):
+        log(f"  (b) train_main c_tunet --model_name {name}")
+        runs[name] = phase_single_cli(device, work, name)
+    data = os.path.join(work, "eval_data")
+    meta = dict(out_channels=14, dtype=torch.bfloat16, device="meta")
+    trees = {"tunet": tree_launches(TUNet(patch_frame=8, **meta)),
+             "cunet": tree_launches(CUNet(model_depth=101, **meta))}
+    for name, run in runs.items():
+        log(f"  (c) test_single --model_name {name}")
+        out[f"test_single_{name}"] = eval_run(
+            work, data, f"test_single {name}", test_main.test_single,
+            common + [f"--model_name={name}", f"--pretrained_dir={run['logs']}",
+                      f"--pretrained_model_name={SINGLE_FILES[name]}",
+                      f"--exp_name=single_{name}"], [trees[name]])
+    log("  (d) test_final on phase 6's trained CTUNet and (b)'s trained TUNet")
+    tree_ct_res = tree_launches(CTUNet(model_depth=101, patch_frame=8, **meta), res_only=True)
+    out["test_final_trained"] = eval_run(
+        work, data, "test_final, trained TUNet", test_main.test_final,
+        common + [f"--ctunet_dir={ct_logs}", f"--tunet_dir={runs['tunet']['logs']}",
+                  "--exp_name=final_trained"], [tree_ct_res, trees["tunet"]])
+    out.update({f"{name}_cli": {k: v for k, v in run.items() if k != "logs"}
+                for name, run in runs.items()})
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 10: {out['wall_s']!r} s")
+    return out
+
+
 def step_stats(run):
     """A train phase's numbers for the summary line: with remat, and under
     ``no_remat`` and ``remat_check`` where the phase has them."""
@@ -2125,10 +2344,14 @@ def main() -> int:
     log("phase 8c: --distributed (DDP over NCCL at world 1, sharded eval)")
     ddp = phase_ddp(device, work, ev.pop("argv"))
     log(f"  phase 8: {time.perf_counter() - t8!r} s")
-    work_dir.cleanup()
 
     log("phase 9: the measuring layer (sw 8, MFU, traced records, NaN checks)")
     meas = phase_measure(device)
+
+    log("phase 10: main_C_TUNet.py's workflow (TUNet and CUNet training, test_single, "
+        "test_final on the trained TUNet)")
+    single = phase_single(device, work, cli["logs"], ev.pop("common"))
+    work_dir.cleanup()
 
     entries = []
     for info in kernels.KERNELS:
@@ -2146,6 +2369,15 @@ def main() -> int:
             "batchnorm_train_launches_per_step": bn["launches_per_step"][info.name],
             "ddp_train_launches_per_step": ddp["launches_per_step"][info.name],
             "sw8_launches": meas["sw8_launches"][info.name],
+            **{f"{m}_train_launches_per_step{sfx}": run["launches_per_step"][info.name]
+               for m in ("tunet", "cunet")
+               for sfx, run in (("", single[f"{m}_steps"]),
+                                ("_no_remat", single[f"{m}_steps"]["no_remat"]))},
+            **{f"{m}_cli_launches": single[f"{m}_cli"]["launches"][info.name]
+               for m in ("tunet", "cunet")},
+            **{f"eval_single_{m}_launches": single[f"test_single_{m}"]["launches"][info.name]
+               for m in ("tunet", "cunet")},
+            "eval_final_trained_launches": single["test_final_trained"]["launches"][info.name],
         })
     log(json.dumps({
         "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
@@ -2162,6 +2394,9 @@ def main() -> int:
         "train_batchnorm": step_stats(bn),
         "ddp": {k: v for k, v in ddp.items() if k != "launches_per_step"},
         "measure": {k: v for k, v in meas.items() if k != "sw8_launches"},
+        "single": {k: (step_stats(v) if k.endswith("_steps") else
+                       {kk: vv for kk, vv in v.items() if kk != "launches"}
+                       if isinstance(v, dict) else v) for k, v in single.items()},
         "wall_s": time.perf_counter() - start,
     }))
     log(card)

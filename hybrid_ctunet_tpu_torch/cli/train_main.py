@@ -1,14 +1,17 @@
 """Training entry point (reference main_C_TUNet.py:100-249 /
 main_CTUNet.py:97-227). Port of ``hybrid_ctunet_tpu/cli/train_main.py``.
 
-    python -m hybrid_ctunet_tpu_torch.cli.train_main --synthetic \\
+    python -m hybrid_ctunet_tpu_torch.cli.train_main [ctunet] --synthetic \\
         --model_depths 101 --patch_frame 8 --max_epochs 2 --val_every 2 \\
         --warmup_epochs 1 --save_checkpoint --logdir /path/to/run \\
         [--dropout_rate 0.2] [--norm_name batch] [--distributed]
+    python -m hybrid_ctunet_tpu_torch.cli.train_main c_tunet \\
+        --model_name tunet|cunet [the same flags]
 
-Run as a module it is main_CTUNet.py's entry, ``main("ctunet")`` (the model
-is CTUNet whatever ``--model_name`` says, as there); ``main("c_tunet")`` is
-main_C_TUNet.py's, which takes ``--model_name cunet | tunet | ctunet``. It
+Run as a module, its first word picks the entry (``run``): ``ctunet``, or
+no word, is main_CTUNet.py's, ``main("ctunet")`` (the model is CTUNet
+whatever ``--model_name`` says, as there); ``c_tunet`` is main_C_TUNet.py's,
+``main("c_tunet")``, which takes ``--model_name cunet | tunet | ctunet``. It
 runs on the card unless ``--device cpu`` is given. Logs and checkpoints go to
 ``./runs/<logdir>`` (an absolute ``--logdir`` is used as it is).
 
@@ -95,5 +98,24 @@ def main_worker(args):
     return best
 
 
+ENTRIES = ("ctunet", "c_tunet")
+
+
+def run(argv=None) -> int:
+    """The module entry: ``[ctunet|c_tunet] [flags]`` -> ``main(entry,
+    flags)``; no entry word (the first argument a flag, or none) is
+    ``ctunet``. Another word prints the usage and returns 2."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    entry = "ctunet"
+    if argv and not argv[0].startswith("-"):
+        entry, argv = argv[0], argv[1:]
+        if entry not in ENTRIES:
+            print(f"usage: python -m hybrid_ctunet_tpu_torch.cli.train_main "
+                  f"[{'|'.join(ENTRIES)}] [flags]", file=sys.stderr)
+            return 2
+    main(entry, argv)
+    return 0
+
+
 if __name__ == "__main__":
-    main("ctunet", sys.argv[1:])
+    sys.exit(run())

@@ -10,6 +10,8 @@ from hybrid_ctunet_tpu_torch.ops import (attention, ffn, norm, pixelweight, scat
                                          winograd)
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
 

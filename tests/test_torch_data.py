@@ -20,6 +20,8 @@ from hybrid_ctunet_tpu_torch.data import dataset, loader, nifti, synthetic, tran
 from hybrid_ctunet_tpu_torch.eval import metrics
 from hybrid_ctunet_tpu_torch.utils.logging import AverageMeter, ScalarWriter
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 ROI = (32, 32, 16)
 AUG = dict(RandFlipd_prob=0.5, RandRotate90d_prob=0.5, RandScaleIntensityd_prob=0.5,
            RandShiftIntensityd_prob=0.5)

@@ -45,6 +45,8 @@ from hybrid_ctunet_tpu_torch.utils.params import (
     _Out, ctunet_state_dict_from_jax, load_numpy_state_dict, tunet_state_dict_from_jax,
 )
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 # tests/test_models.py TINY
 TINY = dict(out_channels=3, dim_conv_stem=16, img_size=(32, 32), frames=32, patch_frame=8,
             hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2, window=2)
@@ -369,8 +371,9 @@ def test_masks_differ_per_step_microbatch_and_rank():
 
 
 def test_train_cli_with_dropout(tmp_path, monkeypatch):
-    """``train_main --dropout_rate 0.2 --device cpu`` (main_C_TUNet's entry,
-    the TINY TUNet): one epoch and a validation pass, checkpoints written,
+    """``train_main c_tunet --dropout_rate 0.2 --device cpu`` (main_C_TUNet's
+    entry through the module entry's word, the TINY TUNet): one epoch and a
+    validation pass, ``model_vit.pt`` and ``latest.pt`` written,
     dropout drawn in the train steps. Resumed from ``latest.pt``
     (``--checkpoint``) for a second epoch, the train step counts on from the
     steps the first run took, so that its masks are new."""
@@ -392,8 +395,10 @@ def test_train_cli_with_dropout(tmp_path, monkeypatch):
         "--feature_size", "16", "--window", "2", "--max_epochs", "1", "--val_every", "1",
         "--save_checkpoint", "--noamp", "--infer_overlap", "0", "--data_dir", data,
         "--logdir", logs]
-    best = train_main.main("c_tunet", argv)
-    assert np.isfinite(best["acc"]) and "latest.pt" in os.listdir(logs)
+    assert train_main.run(["c_tunet", *argv]) == 0  # the module entry, main_C_TUNet.py's word
+    assert {"latest.pt", "model_vit.pt"} <= set(os.listdir(logs))
+    best = torch.load(os.path.join(logs, "model_vit.pt"), weights_only=False)["best_acc"]
+    assert np.isfinite(best) and best > 0
     assert calls and set(calls) == {0.2}
     taken = train_steps[0].step
     assert taken > 0

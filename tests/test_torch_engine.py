@@ -19,6 +19,8 @@ from hybrid_ctunet_tpu_torch.ops.resize import resample_3d_nearest
 from hybrid_ctunet_tpu.infer import sliding_window as j_sw
 from hybrid_ctunet_tpu.ops.resize import resample_3d_nearest as j_resample
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 W = np.array([[0.5, -1.25, 2.0]], np.float32)  # (C_in=1, 3)
 B = np.array([0.25, -0.5, 1.0], np.float32)
 W2 = np.array([[-0.75, 1.5]], np.float32)

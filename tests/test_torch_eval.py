@@ -7,6 +7,7 @@ masks equal on >= 99.9% of voxels, HD95 equal for every organ whose mask is
 equal); the port's ``test_single`` and ``test_ctunet`` runs, the eval
 host/device pipeline, and the flags the eval CLI refuses."""
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
 from hybrid_ctunet_tpu_torch.eval import postprocess, report
 from hybrid_ctunet_tpu_torch.train.checkpoint import save_checkpoint
 from hybrid_ctunet_tpu_torch.train.state import make_optimizer
+
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
 
 # the JAX package's plain layouts (tests/test_torch_train.py): its TPU
 # rewrites are the same math and take twice as long to compile on the CPU
@@ -133,7 +136,8 @@ TINY = ["--roi_x=32", "--roi_y=32", "--roi_z=32", "--out_channels=3", "--model_d
 def eval_dirs(tmp_path_factory):
     """A synthetic (48, 48, 40) validation case, and the port's random-init
     checkpoints in the reference's format: three CTUNet files and a TUNet
-    ``model_vit.pt`` (the CUNet's as ``model_res.pt`` beside it)."""
+    ``model_vit.pt`` (the CUNet's as ``model_res.pt`` beside it); removed
+    after the module's tests."""
     root = tmp_path_factory.mktemp("eval")
     data = root / "data"
     path = write_synthetic_dataset(str(data), n_train=1, n_val=1, shape=(48, 48, 40))
@@ -146,7 +150,8 @@ def eval_dirs(tmp_path_factory):
         for f in files:
             save_checkpoint(str(root / sub), f, model, make_optimizer(model.parameters()),
                             epoch=0, best_acc=0.0)
-    return root, flags_
+    yield root, flags_
+    shutil.rmtree(root)  # ~1 GB of checkpoints: free the disk for the rest of the suite
 
 
 def _jax_pt_params(args, model_name, path):
@@ -208,16 +213,23 @@ def test_final_postprocess_reports_the_processed_masks(eval_dirs, monkeypatch):
     assert "dsc_postprocessed: " in (root / "outputs" / "pp" / "dice.txt").read_text()
 
 
-def test_single_and_ctunet_run(eval_dirs, monkeypatch):
-    """The port's test_single (CUNet) and test_ctunet (three checkpoints,
-    two passes): finite rows of per-organ Dice, reports and masks written."""
+@pytest.mark.parametrize("entry", ["single cunet", "single tunet", "ctunet"])
+def test_single_and_ctunet_run(eval_dirs, monkeypatch, entry):
+    """The port's test_single (CUNet's ``model_res.pt``, TUNet's
+    ``model_vit.pt``) and test_ctunet (three checkpoints, two passes):
+    finite rows of per-organ Dice, reports and masks written."""
     root, flags_ = eval_dirs
     monkeypatch.chdir(root)
-    rows = tm.test_single(flags_ + ["--device=cpu", "--model_name=cunet",
-                                    f"--pretrained_dir={root / 'tu'}",
-                                    "--pretrained_model_name=model_res.pt", "--exp_name=one"])
-    assert rows.shape == (1, 2) and np.isfinite(rows).all()
-    assert (root / "outputs" / "one" / "dice.txt").exists()
+    if entry.startswith("single"):
+        name = entry.split()[1]
+        file = {"cunet": "model_res.pt", "tunet": "model_vit.pt"}[name]
+        rows = tm.test_single(flags_ + ["--device=cpu", f"--model_name={name}",
+                                        f"--pretrained_dir={root / 'tu'}",
+                                        f"--pretrained_model_name={file}",
+                                        f"--exp_name=one_{name}"])
+        assert rows.shape == (1, 2) and np.isfinite(rows).all()
+        assert (root / "outputs" / f"one_{name}" / "dice.txt").exists()
+        return
     results = tm.test_ctunet(flags_ + ["--device=cpu", f"--pretrained_dir={root / 'ct'}",
                                        "--exp_name=ct3"])
     assert set(results) == {"res+vit", "hybrid"}

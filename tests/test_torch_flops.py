@@ -22,6 +22,8 @@ from hybrid_ctunet_tpu_torch.cli import bench, mfu
 from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
 from hybrid_ctunet_tpu_torch.utils import flops
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 _spec = importlib.util.spec_from_file_location(
     "mfu_accounting", Path(__file__).resolve().parent.parent / "tools" / "mfu_accounting.py")
 MFU = importlib.util.module_from_spec(_spec)

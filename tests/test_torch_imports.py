@@ -8,11 +8,14 @@ import sys
 import textwrap
 from pathlib import Path
 
+from torch_threads import THREADS, two_threads  # noqa: F401 (autouse: two torch threads)
+
 REPO = Path(__file__).resolve().parent.parent
 
-SCRIPT = textwrap.dedent("""
+SCRIPT = textwrap.dedent(f"""
     import importlib, pkgutil, sys
     import torch
+    torch.set_num_threads({THREADS})
     import hybrid_ctunet_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]

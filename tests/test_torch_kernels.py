@@ -26,6 +26,8 @@ from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, scatt
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 from hybrid_ctunet_tpu_torch.utils.params import _Out
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -40,6 +40,8 @@ from hybrid_ctunet_tpu_torch.utils.params import (
     cunet_state_dict_from_jax, load_numpy_state_dict, random_init_, tunet_state_dict_from_jax,
 )
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 TINY = dict(out_channels=3, dim_conv_stem=16, img_size=(32, 32), frames=32, patch_frame=8,
             hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2, window=2)
 JAX_PLAIN = dict(ZFOLD="0", ALTFOLD="0", FOLD96="0", STEM_Z4="0", VIRTUAL_CONCAT="0",

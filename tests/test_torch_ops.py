@@ -12,6 +12,8 @@ from hybrid_ctunet_tpu.ops.importance import gaussian_importance_map as j_import
 from hybrid_ctunet_tpu_torch.ops import act, conv, norm
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 
 @pytest.mark.parametrize("k,s", [(3, 1), (1, 1), (3, 2), (1, 2), (7, (2, 2, 1)),
                                  ((3, 3, 1), (2, 2, 1)), (2, 2), (4, 2)])

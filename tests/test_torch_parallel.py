@@ -35,11 +35,14 @@ all-reduce); the sharded engine
 against the one-process engine and JAX's mesh engine to 1e-6 (the canvases
 are summed in another order)."""
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
 
 DEADLINE_S = 120
 LR = 1.0
@@ -236,6 +239,7 @@ def test_dp_step_matches_jax(tmp_path):
     np.testing.assert_allclose(r0["loss"], float(jm["loss"]), rtol=1e-4)
     grad = cunet_state_dict_from_jax(jax.device_get({"params": grads}))
     got = {k: v.numpy() for k, v in torch.load(path).items()}
+    os.remove(path)  # ~0.2 GB: free the disk for the rest of the suite
     assert set(got) == set(grad) == set(sd)
     _assert_changes_close(sd, got, {k: _sgd_change(g, sd[k]) for k, g in grad.items()})
     # ROADMAP C9: the JAX DP step applies the sum of the shards' gradients
@@ -261,6 +265,7 @@ def test_sync_batchnorm_matches_global_batch(tmp_path):
                                                            torch.from_numpy(y), LR)
     np.testing.assert_allclose(r0["loss"], m["loss"].item(), rtol=2e-5)
     got = {k: v.numpy() for k, v in torch.load(path).items()}
+    os.remove(path)  # ~0.2 GB: free the disk for the rest of the suite
     want = {k: v.numpy() for k, v in model.state_dict().items()}
     for k, v in want.items():
         if k.endswith("num_batches_tracked"):
@@ -410,3 +415,4 @@ def test_train_and_eval_cli_distributed(tmp_path, monkeypatch):
                                            "--exp_name", "dist"])
     assert rows.shape == (1, 2) and np.isfinite(rows).all()
     assert (tmp_path / "outputs" / "dist" / "dice.txt").exists()
+    shutil.rmtree(logs)  # ~0.5 GB of checkpoints: free the disk for the rest of the suite

@@ -17,6 +17,8 @@ from hybrid_ctunet_tpu_torch import kernels
 from hybrid_ctunet_tpu_torch.cli import bench
 from hybrid_ctunet_tpu_torch.utils import StepTimer, enable_nan_checks, profiling, trace
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 TINY = dict(out_channels=3, dim_conv_stem=16, img_size=(32, 32), frames=32, patch_frame=8,
             hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2, window=2)
 ROI = (32, 32, 32)

@@ -35,20 +35,11 @@ from hybrid_ctunet_tpu_torch.utils.params import (
     cunet_state_dict_from_jax, load_numpy_state_dict, random_init_,
 )
 from test_torch_train import JAX_PLAIN, TINY, _jax_params
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
 
 MODELS = {"cunet": (CUNet, dict(out_channels=3, model_depth=50)),
           "tunet": (TUNet, TINY),
           "ctunet": (CTUNet, dict(model_depth=50, **TINY))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs six workers on a few cores, and
-    these conv-heavy steps at the default thread count oversubscribe them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

@@ -7,6 +7,8 @@ ResNet stages normalize over few voxels at 32^3, ROADMAP C5), exact
 gradient accumulation, and the training CLI end to end on the CPU, its
 checkpoint read by the JAX package."""
 import os
+import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from hybrid_ctunet_tpu.train import steps as jsteps
 from hybrid_ctunet_tpu.train.checkpoint import load_params_from_torch
 from hybrid_ctunet_tpu_torch.cli import factory, train_main
 from hybrid_ctunet_tpu_torch.cli.args import build_train_parser
+from hybrid_ctunet_tpu_torch.data.synthetic import write_synthetic_dataset
 from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet, TUNet
 from hybrid_ctunet_tpu_torch.ops import losses
 from hybrid_ctunet_tpu_torch.ops.resize import downscale_labels
@@ -35,6 +38,8 @@ from hybrid_ctunet_tpu_torch.train.checkpoint import load_weights, save_checkpoi
 from hybrid_ctunet_tpu_torch.utils.params import (
     ctunet_state_dict_from_jax, load_numpy_state_dict, tunet_state_dict_from_jax,
 )
+
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
 
 # tests/test_models.py TINY
 TINY = dict(out_channels=3, dim_conv_stem=16, img_size=(32, 32), frames=32, patch_frame=8,
@@ -306,6 +311,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert ckpt["epoch"] == 3 and ckpt["best_acc"] == 0.25
     for k, v in model.state_dict().items():
         assert torch.equal(v, fresh.state_dict()[k]), k
+    os.remove(path)  # ~0.2 GB: free the disk for the rest of the suite
 
 
 def test_train_cli_end_to_end(tmp_path):
@@ -313,10 +319,13 @@ def test_train_cli_end_to_end(tmp_path):
     validation pass, ``model_res.pt`` and ``latest.pt``; the JAX package
     reads the checkpoint and its forward on a 32^3 input equals the port's
     (1e-3 of the max, ROADMAP C5: at the 32x32x16 training ROI the ResNet's
-    stage 4 would normalize over 8 voxels)."""
+    stage 4 would normalize over 8 voxels). The synthetic cases are
+    48x48x32 voxels at 1 x 1 x 2.5 mm: a validation grid of 3 windows."""
     data, logs = str(tmp_path / "data"), str(tmp_path / "logs")
+    json_list = os.path.basename(write_synthetic_dataset(data, shape=(48, 48, 32), n_classes=3))
     best = train_main.main("c_tunet", [
-        "--device", "cpu", "--synthetic", "--model_name", "cunet", "--model_depths", "50",
+        "--device", "cpu", "--json_list", json_list, "--model_name", "cunet",
+        "--model_depths", "50",
         "--roi_x", "32", "--roi_y", "32", "--roi_z", "16", "--out_channels", "3",
         "--max_epochs", "1", "--val_every", "1", "--save_checkpoint", "--noamp",
         "--infer_overlap", "0", "--data_dir", data, "--logdir", logs])
@@ -332,6 +341,43 @@ def test_train_cli_end_to_end(tmp_path):
     with flags.override(**JAX_PLAIN):
         want = np.asarray(JCUNet(out_channels=3, model_depth=50).apply(jparams, jnp.asarray(x))[0])
     np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max(), rtol=1e-3)
+    shutil.rmtree(logs)  # two ~0.5 GB checkpoints: free the disk for the rest of the suite
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["c_tunet", "--model_name", "tunet", "--max_epochs", "2"],
+     ("c_tunet", ["--model_name", "tunet", "--max_epochs", "2"])),
+    (["ctunet", "--synthetic"], ("ctunet", ["--synthetic"])),
+    (["--synthetic", "--model_depths", "101"],
+     ("ctunet", ["--synthetic", "--model_depths", "101"])),
+    ([], ("ctunet", [])),
+])
+def test_module_entry_picks_the_entry(monkeypatch, argv, want):
+    """``python -m ...cli.train_main [ctunet|c_tunet] [flags]``: the first
+    word picks main_CTUNet.py's or main_C_TUNet.py's entry, and no word
+    (the first argument a flag, or none) is main_CTUNet.py's."""
+    calls = []
+    monkeypatch.setattr(train_main, "main", lambda entry, a: calls.append((entry, list(a))))
+    monkeypatch.setattr(sys, "argv", ["train_main", *argv])
+    assert train_main.run() == 0
+    assert calls == [want]
+
+
+def test_module_entry_refuses_an_unknown_word(monkeypatch, capsys):
+    """Another first word prints the usage line on stderr and returns 2,
+    training nothing; without a card each entry refuses unless --device
+    cpu is given."""
+    monkeypatch.setattr(train_main, "main", lambda *a: pytest.fail("an entry ran"))
+    assert train_main.run(["cunet", "--synthetic"]) == 2
+    assert ("usage: python -m hybrid_ctunet_tpu_torch.cli.train_main [ctunet|c_tunet] [flags]"
+            in capsys.readouterr().err)
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        return
+    for argv in (["c_tunet", "--model_name", "tunet"], ["c_tunet", "--model_name", "cunet"],
+                 ["ctunet"], []):
+        with pytest.raises(SystemExit, match="--device cpu"):
+            train_main.run(argv)
 
 
 def _rates(model):

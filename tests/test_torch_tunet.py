@@ -14,6 +14,8 @@ from hybrid_ctunet_tpu_torch.utils.params import (
     load_numpy_state_dict, random_init_, tunet_state_dict_from_jax,
 )
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 # tests/test_models.py TINY
 TINY = dict(out_channels=3, dim_conv_stem=16, img_size=(32, 32), frames=32, patch_frame=8,
             hidden_size=64, num_depths=2, mlp_dim=128, num_heads=2, window=2)

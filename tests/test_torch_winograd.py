@@ -16,6 +16,8 @@ from hybrid_ctunet_tpu_torch.ops import conv as conv_ops
 from hybrid_ctunet_tpu_torch.ops import winograd
 from hybrid_ctunet_tpu_torch.ops.recompute import recompute
 
+from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
+
 SHAPE = (1, 2, 32, 96, 32)
 TOL = dict(atol=2e-4, rtol=2e-4)
 
