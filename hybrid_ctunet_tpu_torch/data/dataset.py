@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from .nifti import load_nifti
 from .transforms import augment_crop, preprocess_case, rand_crop_by_pos_neg_label
 
@@ -114,6 +115,7 @@ class TrainLoader:
         self.seed = seed
         self.aug_cfg = aug_cfg or {}
         self.epoch = 0
+        self.owner = profiling.new_owner()
         # one producer thread and a bounded queue double-buffer the batches
         # (the reference's DataLoader workers); prefetch=0 is synchronous
         self.prefetch = prefetch
@@ -134,18 +136,21 @@ class TrainLoader:
             rng_perm = np.random.default_rng((self.seed, self.epoch))
             idx = [int(i) for i in rng_perm.permutation(len(self.dataset))]
         for b in range(0, len(idx), self.batch_size):
-            imgs, labs = [], []
-            for case_idx in idx[b : b + self.batch_size]:
-                img, lab, _, _ = self.dataset.get(case_idx)
-                rng = np.random.default_rng((self.seed, self.epoch, case_idx, b))
-                crops = rand_crop_by_pos_neg_label(
-                    img, lab, rng, spatial_size=self.roi_size, num_samples=self.num_samples
-                )
-                for ci, cl in crops:
-                    ci, cl = augment_crop(ci, cl, rng, self.aug_cfg)
-                    imgs.append(ci)
-                    labs.append(cl)
-            yield np.stack(imgs), np.stack(labs)
+            unit = self.epoch * len(self) + b // self.batch_size
+            with profiling.span("loader.batch", unit, self.owner, cuda=False):
+                imgs, labs = [], []
+                for case_idx in idx[b : b + self.batch_size]:
+                    img, lab, _, _ = self.dataset.get(case_idx)
+                    rng = np.random.default_rng((self.seed, self.epoch, case_idx, b))
+                    crops = rand_crop_by_pos_neg_label(
+                        img, lab, rng, spatial_size=self.roi_size, num_samples=self.num_samples
+                    )
+                    for ci, cl in crops:
+                        ci, cl = augment_crop(ci, cl, rng, self.aug_cfg)
+                        imgs.append(ci)
+                        labs.append(cl)
+                batch = np.stack(imgs), np.stack(labs)
+            yield batch
 
     def __iter__(self):
         if self.prefetch <= 0:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..ops.importance import gaussian_importance_map
 from ..ops.scatter import scatter_add_windows
+from ..utils import profiling
 
 
 def get_scan_interval(
@@ -99,7 +100,9 @@ class SlidingWindowEngine:
     as many as the predictor returns (one process only).
     ``rank`` / ``world``: this process's share of the chunks, summed over
     the default process group (every rank calls the engine on the same
-    volume).
+    volume). Under a profiler each chunk's predictor call is the span
+    ``engine.predict`` (unit: the call's number, ``self.calls`` before it;
+    owner ``self.owner``).
     """
 
     def __init__(self, predictor: Callable, roi_size: Tuple[int, int, int], *,
@@ -117,6 +120,8 @@ class SlidingWindowEngine:
         self.mode, self.sigma_scale = mode, sigma_scale
         self.num_outputs = num_outputs
         self.rank, self.world = int(rank), int(world)
+        self.calls = 0
+        self.owner = profiling.new_owner()
 
     def importance(self) -> np.ndarray:
         """The blend's weight of each window voxel, (rx, ry, rz) fp32."""
@@ -151,7 +156,8 @@ class SlidingWindowEngine:
             wins = torch.stack([
                 padded[0, x0 : x0 + rx, y0 : y0 + ry, z0 : z0 + rz] for x0, y0, z0 in s.tolist()
             ])
-            preds = self.predictor(wins, *pred_args)
+            with profiling.span("engine.predict", self.calls, self.owner):
+                preds = self.predictor(wins, *pred_args)
             preds = preds if isinstance(preds, (tuple, list)) else (preds,)
             if self.num_outputs is not None and len(preds) != self.num_outputs:
                 raise ValueError(f"predictor gave {len(preds)} outputs, expected {self.num_outputs}")
@@ -163,6 +169,7 @@ class SlidingWindowEngine:
                 ]
             for acc, p in zip(accs, preds):
                 scatter_add_windows(acc, p.contiguous(), importance, s)
+        self.calls += 1
         if self.world > 1:
             accs = self._reduce(accs, padded_size, volume.device)
         crop = tuple(slice(l, l + i) for l, i in zip(lo, image_size))

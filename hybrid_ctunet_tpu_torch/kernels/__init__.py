@@ -100,12 +100,24 @@ def wrapper(info: KernelInfo):
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launch counter and the recompute counter."""
+    from ..ops.recompute import checkpoint
+
     for info in KERNELS:
         wrapper(info).launches = 0
+    checkpoint.recomputes = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {info.name: wrapper(info).launches for info in KERNELS}
+
+
+def recomputes() -> int:
+    """Rematerialized regions run again in a backward since the last reset
+    (``ops.recompute.checkpoint.recomputes``)."""
+    from ..ops.recompute import checkpoint
+
+    return checkpoint.recomputes
 
 
 def traced_counts(names: Iterable[str]) -> Dict[str, int]:

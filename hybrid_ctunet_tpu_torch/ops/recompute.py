@@ -23,6 +23,8 @@ from typing import Callable, Sequence
 import torch
 import torch.utils.checkpoint
 
+from ..utils import profiling
+
 
 class _Recompute(torch.autograd.Function):
     @staticmethod
@@ -72,13 +74,17 @@ def recomputing() -> bool:
 def _replay(generators: Sequence[torch.Generator], states):
     """The recompute's context: each generator set back to its state at the
     region's entry, so that the region draws its forward's dropout masks
-    again, and returned after to the state it had."""
+    again, and returned after to the state it had. Counted in
+    ``checkpoint.recomputes``; under a profiler the span
+    ``remat.recompute``, in the train step's ``step.backward``."""
     now = [g.get_state() for g in generators]
     for g, s in zip(generators, states):
         g.set_state(s)
     _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+    checkpoint.recomputes += 1
     try:
-        yield
+        with profiling.span("remat.recompute", within="step.backward"):
+            yield
     finally:
         _LOCAL.depth -= 1
         for g, s in zip(generators, now):
@@ -96,3 +102,6 @@ def checkpoint(fn: Callable, *args, generators: Sequence[torch.Generator] = ()):
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=lambda: (contextlib.nullcontext(), _replay(generators, states)))
+
+
+checkpoint.recomputes = 0  # regions run again in a backward (kernels.reset_launch_counts)

@@ -39,6 +39,7 @@ from torch import nn
 from ..models.layers import Dropout, remat, set_dropout_generator
 from ..ops.losses import dice_ce_loss
 from ..ops.resize import downscale_labels
+from ..utils import profiling
 from .state import set_learning_rate
 
 
@@ -108,7 +109,10 @@ class TrainStep:
     ``DistributedDataParallel``); its gradients are then synced once a
     step, at the last microbatch. ``self.step`` counts the steps taken,
     from ``start_step`` (a resumed run's saved count, so that it draws new
-    masks, as the JAX step's restored ``state.step`` does). ``remat``:
+    masks, as the JAX step's restored ``state.step`` does). Under a
+    profiler a step is the span ``step`` (unit ``self.step``, owner
+    ``self.owner``) around ``step.forward`` (forward and loss),
+    ``step.backward`` (a microbatch each) and ``step.optimizer``. ``remat``:
     the forward runs through :class:`Rematerialized` (not for a DDP
     ``model``: ``parallel.dp.make_dp_train_step`` wraps it inside)."""
 
@@ -125,6 +129,7 @@ class TrainStep:
         self.loss_kw = dict(smooth_nr=smooth_nr, smooth_dr=smooth_dr)
         self.grad_accum, self.rank = grad_accum, rank
         self.step = start_step
+        self.owner = profiling.new_owner()
         self.generator = None
         if any(isinstance(m, Dropout) and m.rate > 0 for m in model.modules()):
             device = next(model.parameters()).device
@@ -137,22 +142,27 @@ class TrainStep:
         if B % accum:
             raise ValueError(f"batch {B} not divisible by grad_accum {accum}")
         mb = B // accum
-        self.optimizer.zero_grad(set_to_none=True)
-        metrics: Dict[str, torch.Tensor] = {}
-        for i in range(accum):
-            if self.generator is not None:
-                self.generator.manual_seed(
-                    dropout_seed_of(self.rank, self.step, i))
-            sl = slice(i * mb, (i + 1) * mb)
-            sync = i == accum - 1 or not hasattr(self.model, "no_sync")
-            with contextlib.nullcontext() if sync else self.model.no_sync():
-                loss, aux = self.loss_impl(self.model(image[sl]), label[sl], **self.loss_kw)
-                (loss / accum).backward()
-            for k, v in {"loss": loss, **aux}.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() / accum
-        set_learning_rate(self.optimizer, lr)
-        self.optimizer.step()
-        self.step += 1
+        with profiling.span("step", self.step, self.owner):
+            self.optimizer.zero_grad(set_to_none=True)
+            metrics: Dict[str, torch.Tensor] = {}
+            for i in range(accum):
+                if self.generator is not None:
+                    self.generator.manual_seed(
+                        dropout_seed_of(self.rank, self.step, i))
+                sl = slice(i * mb, (i + 1) * mb)
+                sync = i == accum - 1 or not hasattr(self.model, "no_sync")
+                with contextlib.nullcontext() if sync else self.model.no_sync():
+                    with profiling.span("step.forward"):
+                        loss, aux = self.loss_impl(self.model(image[sl]), label[sl],
+                                                   **self.loss_kw)
+                    with profiling.span("step.backward"):
+                        (loss / accum).backward()
+                for k, v in {"loss": loss, **aux}.items():
+                    metrics[k] = metrics.get(k, 0.0) + v.detach() / accum
+            with profiling.span("step.optimizer"):
+                set_learning_rate(self.optimizer, lr)
+                self.optimizer.step()
+            self.step += 1
         return metrics
 
 

@@ -8,14 +8,25 @@
                               (the counterpart of ``jax_debug_nans``).
 - ``StepTimer``             — host-clock step timing fenced on the result;
                               items/s and items/min.
+- ``span(name)``            — a named span of the program's work while a
+                              ``torch.profiler`` profile is active (nothing
+                              otherwise): a ``record_function`` range in the
+                              trace, and a record in a bounded store that
+                              ``spans()`` returns, host and device times
+                              resolved.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import Deque, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _NAN_HOOKS = []  # the global forward hooks while NaN checks are on
 _RUNNING = []  # modules whose forward is running, outermost first
@@ -123,3 +134,131 @@ class StepTimer:
 
     def per_min(self, **kw) -> float:
         return 60.0 * self.items_per_s(**kw)
+
+
+SPAN_CAPACITY = 65536  # records kept; the oldest go first
+# host stamps (``time.perf_counter_ns``) to the profiler's Unix-ns clock
+_PROFILER_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
+_STORE: Deque["SpanRecord"] = collections.deque(maxlen=SPAN_CAPACITY)
+_OPEN: Dict[str, "SpanRecord"] = {}  # the newest open span of each name, on any thread
+_THREAD = threading.local()  # .stack: the open spans of this thread, outermost first
+_OWNERS = itertools.count()
+
+
+@dataclass(eq=False)
+class SpanRecord:
+    """One closed span. ``unit``: the step, call or batch it belongs to;
+    ``owner``: the serial of the object that counts the units
+    (:func:`new_owner`); ``parent``: the enclosing span's record. Host times
+    are ``time.perf_counter_ns()``; ``device_ms`` is the time between the
+    span's two CUDA events on its stream, None without them, resolved when
+    :func:`spans` reads the record."""
+    name: str
+    unit: Optional[int]
+    owner: Optional[int]
+    parent: Optional["SpanRecord"]
+    t0_ns: int
+    t1_ns: int = 0
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = None
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) * 1e-6
+
+
+class _Off:
+    """The span while no profiler runs: does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("rec", "rf", "within", "cuda", "shadowed")
+
+    def __init__(self, name, unit, owner, within, cuda):
+        self.rec = SpanRecord(name, unit, owner, None, 0)
+        self.within, self.cuda = within, cuda
+
+    def __enter__(self):
+        rec = self.rec
+        stack = getattr(_THREAD, "stack", None)
+        if stack is None:
+            stack = _THREAD.stack = []
+        parent = stack[-1] if stack else _OPEN.get(self.within) if self.within else None
+        if parent is not None:
+            rec.parent = parent
+            rec.unit = parent.unit if rec.unit is None else rec.unit
+            rec.owner = parent.owner if rec.owner is None else rec.owner
+        self.shadowed = _OPEN.get(rec.name)
+        _OPEN[rec.name] = rec
+        stack.append(rec)
+        self.rf = torch.profiler.record_function(rec.name)
+        self.rf.__enter__()
+        if self.cuda and torch.cuda.is_initialized():
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        rec.t0_ns = time.perf_counter_ns()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.t1_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        self.rf.__exit__(*exc)
+        _THREAD.stack.pop()
+        if self.shadowed is None:
+            _OPEN.pop(rec.name, None)
+        else:
+            _OPEN[rec.name] = self.shadowed
+        _STORE.append(rec)
+        return False
+
+
+def span(name: str, unit: Optional[int] = None, owner: Optional[int] = None, *,
+         within: Optional[str] = None, cuda: bool = True):
+    """A context that spans the program's work ``name`` while a
+    ``torch.profiler`` profile is active; otherwise a shared no-op (one flag
+    read). On, it enters ``torch.profiler.record_function(name)`` and keeps
+    a :class:`SpanRecord` in the store. ``unit`` and ``owner`` default to
+    the parent's: the enclosing span on this thread or, where there is none,
+    the open span named ``within`` on any thread (a recompute on autograd's
+    thread names the backward that runs it). ``cuda``: on a CUDA process,
+    two timing events on the current stream time the span on the device;
+    False for host work off the device's queue."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, unit, owner, within, cuda)
+
+
+def new_owner() -> int:
+    """A fresh serial for an object that numbers its spans' units."""
+    return next(_OWNERS)
+
+
+def spans() -> List[SpanRecord]:
+    """The stored records in the order they closed, each one's device time
+    resolved (waiting for its end event)."""
+    out = list(_STORE)
+    for rec in out:
+        events = rec.events
+        if events is not None:
+            events[1].synchronize()
+            rec.device_ms, rec.events = events[0].elapsed_time(events[1]), None
+    return out
+
+
+def to_profiler_ns(t_ns: int) -> int:
+    """A host stamp (``time.perf_counter_ns``) on the profiler's clock: Unix
+    ns, as ``kineto_results.trace_start_ns()`` plus an event's offset."""
+    return t_ns + _PROFILER_OFFSET_NS

@@ -532,3 +532,49 @@ def test_remat_step_equals_plain_step_on_the_card(dev):
     assert counts[False]["conv3x3_winograd"] > 0 and k9 > 0
     assert counts[True]["instance_norm"] == counts[False]["instance_norm"] + norms
     assert counts[True]["conv3x3_winograd"] == counts[False]["conv3x3_winograd"] + k9
+
+
+def test_train_step_spans_on_the_card(dev):
+    """Two TINY CTUNet steps (bf16, 32^3, block remat on) under the
+    profiler: every span timed on the device; the recompute's spans, on
+    autograd's thread, as many as the regions recomputed and each inside
+    its step's ``step.backward``; the phases inside the step's device time;
+    no span recorded as a device kernel."""
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.models import CTUNet, layers
+    from hybrid_ctunet_tpu_torch.train import state, steps
+    from hybrid_ctunet_tpu_torch.utils import profiling
+    from hybrid_ctunet_tpu_torch.utils.params import random_init_
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn(gen, 2, 32, 32, 32, 1, dev=dev)
+    y = torch.randint(0, 3, (2, 32, 32, 32, 1), generator=gen, device=dev)
+    model = random_init_(CTUNet(out_channels=3, model_depth=50, img_size=(32, 32), frames=32,
+                                patch_frame=8, hidden_size=64, num_depths=2, mlp_dim=128,
+                                num_heads=2, window=2, dim_conv_stem=16, dtype=BF, device=dev), 0)
+    step = steps.make_train_step("ctunet", model, state.make_optimizer(model.parameters()))
+    with layers.remat_blocks(True):
+        step(x, y, 1e-4)
+        kernels.reset_launch_counts()
+        n = len(profiling.spans())
+        tp = torch.profiler
+        with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(x, y, 1e-4)
+            torch.cuda.synchronize()
+    got = profiling.spans()[n:]
+    regions = [r for r in got if r.name == "remat.recompute"]
+    assert len(regions) == kernels.recomputes() > 0
+    assert all(r.device_ms is not None and r.device_ms >= 0 for r in got)
+    for unit in (1, 2):
+        (top,) = [r for r in got if r.name == "step" and r.unit == unit]
+        phases = {r.name: r for r in got if r.parent is top}
+        assert sorted(phases) == ["step.backward", "step.forward", "step.optimizer"]
+        assert sum(r.device_ms for r in phases.values()) <= top.device_ms * 1.01
+        mine = [r for r in regions if r.unit == unit]
+        assert len(mine) == len(regions) // 2
+        assert all(r.parent is phases["step.backward"] for r in mine)
+        assert sum(r.device_ms for r in mine) <= phases["step.backward"].device_ms
+    names = {r.name for r in got}
+    assert not [e.name for e in prof.events() if e.name in names
+                and "CUDA" in str(e.device_type) and not e.is_user_annotation]

@@ -1,10 +1,13 @@
 """The port's measuring layer on the CPU: ``utils/profiling.py`` against
 ``hybrid_ctunet_tpu/utils/profiling.py`` (StepTimer on the same clock
 readings), NaN checks, a host trace written for TensorBoard, the
-reconciliation of traced kernel records with the launch counters, and
+reconciliation of traced kernel records with the launch counters,
 ``cli/bench.py``'s engines at two window batches (TINY models of
-tests/test_torch_ctunet.py)."""
+tests/test_torch_ctunet.py), and the program's spans: off without a
+profiler, the train step's phases and recompute, the engine's chunks, the
+loader's batches, the profiler's clock and the store's bound."""
 import os
+import threading
 import types
 
 import jax.numpy as jnp
@@ -15,6 +18,11 @@ import torch
 from hybrid_ctunet_tpu.utils import profiling as jprof
 from hybrid_ctunet_tpu_torch import kernels
 from hybrid_ctunet_tpu_torch.cli import bench
+from hybrid_ctunet_tpu_torch.data import dataset, synthetic
+from hybrid_ctunet_tpu_torch.infer.sliding_window import SlidingWindowEngine
+from hybrid_ctunet_tpu_torch.models import layers
+from hybrid_ctunet_tpu_torch.ops.recompute import checkpoint
+from hybrid_ctunet_tpu_torch.train import state, steps
 from hybrid_ctunet_tpu_torch.utils import StepTimer, enable_nan_checks, profiling, trace
 
 from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
@@ -123,3 +131,172 @@ def test_window_batch_does_not_change_the_ensemble():
         else:
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                        atol=1e-5 * want.abs().max().item())
+
+
+def _profiled():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _new_spans(before):
+    """The records stored since ``before`` (a count of ``profiling.spans()``)."""
+    return profiling.spans()[before:]
+
+
+class _FakeEvent:
+    """A timing CUDA event on a CPU machine: counts what is made and read."""
+    made, resolved = [], []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        _FakeEvent.made.append(self)
+        self.recorded = False
+
+    def record(self, stream=None):
+        self.recorded = True
+
+    def synchronize(self):
+        assert self.recorded
+
+    def elapsed_time(self, end):
+        _FakeEvent.resolved.append(self)
+        return 2.5
+
+
+def test_spans_off_and_on(monkeypatch):
+    """Off (no profiler): one shared no-op, nothing stored, no CUDA event.
+    On: a record a span, two events on a CUDA process resolved only when the
+    store is read; a host-only span makes none; a span on another thread
+    with none open there takes the open span it names by ``within`` as its
+    parent, with its unit and owner."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(_FakeEvent, "made", [])
+    monkeypatch.setattr(_FakeEvent, "resolved", [])
+    n = len(profiling.spans())
+    assert profiling.span("a") is profiling.span("b", 3, 4)
+    with profiling.span("a") as rec:
+        assert rec is None
+    assert len(profiling.spans()) == n and _FakeEvent.made == []
+
+    owner = profiling.new_owner()
+    inner = []
+    with _profiled():
+        with profiling.span("step.backward", 7, owner) as bwd:
+            t = threading.Thread(target=lambda: inner.append(
+                _record_in(profiling.span("remat.recompute", within="step.backward"))))
+            t.start()
+            t.join(timeout=30)
+            with profiling.span("host", cuda=False) as host:
+                pass
+    assert not t.is_alive()
+    assert len(_FakeEvent.made) == 4 and _FakeEvent.resolved == []
+    got = _new_spans(n)
+    assert len(_FakeEvent.resolved) == 2
+    assert [r.name for r in got] == ["remat.recompute", "host", "step.backward"]
+    assert got[0] is inner[0] and got[0].parent is bwd and (got[0].unit, got[0].owner) == (7, owner)
+    assert host.parent is bwd and host.device_ms is None and host.events is None
+    assert bwd.device_ms == 2.5 and bwd.parent is None and bwd.t0_ns <= bwd.t1_ns
+
+
+def _record_in(context):
+    with context as rec:
+        return rec
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_step_spans(remat):
+    """One TINY CTUNet step under the profiler: one ``step`` on the step's
+    unit with ``step.forward``, ``step.backward`` and ``step.optimizer``
+    inside it; with block remat on, as many ``remat.recompute`` spans as
+    regions recomputed (``kernels.recomputes()`` since
+    ``reset_launch_counts``), each inside that step's ``step.backward``;
+    none with it off."""
+    model = bench.build_ctunet(0, "cpu", torch.float32, model_depth=50, **TINY)
+    step = steps.make_train_step("ctunet", model, state.make_optimizer(model.parameters()),
+                                 start_step=5)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, *ROI, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 3, (1, *ROI, 1)).astype(np.int32))
+    checkpoint.recomputes = 3
+    kernels.reset_launch_counts()
+    assert kernels.recomputes() == 0
+    n = len(profiling.spans())
+    with layers.remat_blocks(remat), _profiled():
+        step(x, y, 1e-4)
+    got = _new_spans(n)
+    recomputes = kernels.recomputes()
+    (top,) = [r for r in got if r.name == "step"]
+    assert (top.unit, top.owner, top.parent) == (5, step.owner, None)
+    phases = {r.name: r for r in got if r.parent is top}
+    assert sorted(phases) == ["step.backward", "step.forward", "step.optimizer"]
+    assert all((r.unit, r.owner) == (5, step.owner) for r in got)
+    regions = [r for r in got if r.name == "remat.recompute"]
+    assert len(regions) == recomputes and (recomputes > 0) == remat
+    assert all(r.parent is phases["step.backward"] for r in regions)
+    assert len(got) == 4 + recomputes
+
+
+@pytest.mark.parametrize("sw", [2, 4])
+def test_engine_spans_a_chunk(sw):
+    """One ``engine.predict`` span a chunk, on the engine's call count."""
+    engine = SlidingWindowEngine(lambda w: w[..., :2] * 2, ROI, sw_batch_size=sw, overlap=0.5)
+    volume = torch.rand((1, 40, 36, 34, 1))
+    chunks = -(-len(engine.plan(volume.shape[1:4])[3]) // sw)
+    assert chunks > 1
+    n = len(profiling.spans())
+    engine(volume)
+    with _profiled():
+        engine(volume)
+        engine(volume)
+    got = _new_spans(n)
+    assert all(r.name == "engine.predict" and r.owner == engine.owner for r in got)
+    assert [r.unit for r in got] == [1] * chunks + [2] * chunks
+
+
+def test_loader_spans_a_batch_on_its_prefetch_thread(tmp_path, monkeypatch):
+    """One ``loader.batch`` span a batch, numbered from epoch 0, made on the
+    prefetch thread."""
+    path = synthetic.write_synthetic_dataset(str(tmp_path), n_train=3, n_val=0,
+                                             shape=(48, 48, 24))
+    from hybrid_ctunet_tpu_torch.data.datalist import load_decathlon_datalist
+
+    ds = dataset.CachedDataset(load_decathlon_datalist(path, base_dir=str(tmp_path)))
+    loader = dataset.TrainLoader(ds, roi_size=(32, 32, 16), prefetch=2)
+    threads = []
+    span = profiling.span
+
+    def spy(name, *args, **kw):
+        threads.append(threading.current_thread().name)
+        return span(name, *args, **kw)
+
+    monkeypatch.setattr(profiling, "span", spy)
+    loader.set_epoch(1)
+    n = len(profiling.spans())
+    with _profiled():
+        batches = list(loader)
+    got = _new_spans(n)
+    assert len(batches) == len(loader) == 3
+    assert [r.name for r in got] == ["loader.batch"] * 3
+    assert [r.unit for r in got] == [3, 4, 5] and {r.owner for r in got} == {loader.owner}
+    assert threads == ["TrainLoader-prefetch"] * 3
+
+
+def test_span_start_on_the_profilers_clock():
+    """A span's host start, on the profiler's clock, within 5 ms of the
+    profiler's own event for it."""
+    with _profiled() as prof:
+        with profiling.span("clock.check") as rec:
+            torch.ones(8) + 1
+    (ev,) = [e for e in prof.events() if e.name == "clock.check"]
+    start_ns = prof.profiler.kineto_results.trace_start_ns() + ev.time_range.start * 1e3
+    assert abs(profiling.to_profiler_ns(rec.t0_ns) - start_ns) < 5e6
+
+
+def test_span_store_stays_at_its_bound():
+    cap = profiling.SPAN_CAPACITY
+    with _profiled():
+        for i in range(cap + 5):
+            with profiling.span("fill", i):
+                pass
+    got = profiling.spans()
+    assert len(got) == cap and got[0].unit == 5 and got[-1].unit == cap + 4
