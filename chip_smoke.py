@@ -23,7 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    K7's weight packing against its plain layout), K6 per decoder site
    against cuDNN, K8 per InstanceNorm site (its regime, the C entry alone,
    F.instance_norm, a rerun bit for bit) with a CTUNet-chunk and a
-   TUNet-chunk total, K9 per call against cuDNN with its fused entry beside
+   TUNet-chunk total, and K8's residual tails per (shape, residual form),
+   each bit for bit the unfused K8, add and LeakyReLU, timed fused and
+   unfused per chunk; K9 per call against cuDNN with its fused entry beside
    it; K3-K8 also as the C entry alone.
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
@@ -35,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. The Hybrid-CTUNet ensemble: full-width CTUNet (ResNet-101, pf 8,
    174,109,542 params, res head only, overlap 0.5, 50 windows) and the
    TUNet, softmax-mean and argmax over the same volume; launch counts per
-   volume equal to the module tree's for all nine kernels; 2 timed volumes;
+   volume equal to the module tree's for all nine kernels and K8's residual
+   tails (``instance_norm.residual``); 2 timed volumes;
    one 4-window CTUNet batch checked as the TUNet one (every gate off for
    the plain run); one 4-window batch of full-width CUNet (50,779,754
    params).
@@ -250,27 +253,44 @@ def erff_fp32_flops() -> int:
 
 
 def record_norm_sites(model, x, **kw):
-    """(shape, act) -> calls of the conv-path InstanceNorm in one forward of
-    ``model`` on ``x`` (meta tensors: shapes only, nothing computed; no
-    gradient, so no block is rematerialized and each site counts once)."""
+    """The conv-path InstanceNorm sites of one forward of ``model`` on
+    ``x``: (shape, act) -> calls, and the residual tails of instance kind
+    (``ConvNorm.tail``) as (norm module, shape, raw residual), in call
+    order. Meta tensors: shapes only, nothing computed; the parameters and
+    buffers are swapped for meta twins (``torch.func.functional_call``), so
+    a model on the card serves too. Eval mode and no gradient, so no block
+    is rematerialized, no dropout drawn and each site counts once. On the
+    meta device every tail takes its plain composition, so its norms are
+    among the (shape, act) calls too."""
     import torch
 
     from hybrid_ctunet_tpu_torch.models import layers
 
     sites = collections.Counter()
-    orig = layers.instance_norm_act
+    tails = []
+    orig, orig_tail = layers.instance_norm_act, layers.ConvNorm.tail
 
     def rec(t, act=False):
         sites[(tuple(t.shape), act)] += 1
         return orig(t, act)
 
-    layers.instance_norm_act = rec
+    def rec_tail(norm, a, residual, residual_norm=None):
+        if norm.kind == "instance":
+            tails.append((norm, tuple(a.shape), residual_norm is not None))
+        return orig_tail(norm, a, residual, residual_norm)
+
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in (*model.named_parameters(), *model.named_buffers())}
+    training = model.training
+    layers.instance_norm_act, layers.ConvNorm.tail = rec, rec_tail
     try:
+        model.eval()
         with torch.no_grad():
-            model(x, **kw)
+            torch.func.functional_call(model, meta, (x,), kw)
     finally:
-        layers.instance_norm_act = orig
-    return sites
+        layers.instance_norm_act, layers.ConvNorm.tail = orig, orig_tail
+        model.train(training)
+    return sites, tails
 
 
 def phase_kernels(device):
@@ -558,7 +578,12 @@ def norm_rows(randn, nbytes):
     version and to itself on a rerun, bit for bit, and timed through the
     wrapper, as the C entry alone (``norm.norm_call``) and as the library
     call, F.instance_norm (+ in-place F.leaky_relu_) on the channels-last
-    view; its regime is ``norm.plan``'s."""
+    view; its regime is ``norm.plan``'s. Then K8's residual tails
+    (``tails``, per chunk): each (shape, raw residual) bit for bit the
+    unfused sequence it replaces (K8 of a [and of the raw residual], torch's
+    add and LeakyReLU), and itself on a rerun, held to its plain version,
+    timed fused, as the C entry alone (``norm.tail_call``) and unfused; its
+    bound reads a and the residual once and writes once."""
     import torch
     import torch.nn.functional as F
 
@@ -571,13 +596,20 @@ def norm_rows(randn, nbytes):
     ct_model = CTUNet(out_channels=bench.OUT_CHANNELS, model_depth=101, patch_frame=8,
                       dtype=bf, device="meta")
     tu_model = TUNet(out_channels=bench.OUT_CHANNELS, patch_frame=8, dtype=bf, device="meta")
-    census = {"ctunet": record_norm_sites(ct_model, x_meta, res_only=True),
-              "tunet": record_norm_sites(tu_model, x_meta)}
+    recorded = {"ctunet": record_norm_sites(ct_model, x_meta, res_only=True),
+                "tunet": record_norm_sites(tu_model, x_meta)}
+    census = {name: sites for name, (sites, _) in recorded.items()}
+    tails = {name: collections.Counter((shape, raw) for _, shape, raw in t)
+             for name, (_, t) in recorded.items()}
     for name, model, kw in (("ctunet", ct_model, {"res_only": True}), ("tunet", tu_model, {})):
         calls = sum(census[name].values())
+        folded = sum(n for (shape, raw), n in tails[name].items() if raw and norm.folds(shape))
+        tree = tree_launches(model, **kw)
         log(f"  instance_norm sites per {name} chunk: {calls} calls, "
-            f"{len(census[name])} distinct (shape, act)")
-        if calls != tree_launches(model, **kw)["instance_norm"]:
+            f"{len(census[name])} distinct (shape, act); {sum(tails[name].values())} residual "
+            f"tails, {folded} of them folding their projection's norm")
+        if calls - folded != tree["instance_norm"] or \
+                sum(tails[name].values()) != tree["instance_norm.residual"]:
             raise AssertionError(f"recorded {name} InstanceNorm sites differ from the module tree's")
     tallies = {name: Tally(library=True) for name in census}
     alone_sums = dict.fromkeys(census, 0.0)
@@ -621,7 +653,77 @@ def norm_rows(randn, nbytes):
     log(f"  instance_norm per TUNet chunk: {tu['ms']!r} ms (alone {tu['kernel_alone_ms']!r}), "
         f"F.instance_norm {tu['library_ms']!r} ms, bound {tu['bound_ms']!r} ms")
     return {**tallies["ctunet"].row(), "kernel_alone_ms": alone_sums["ctunet"], "sites": sites,
-            "tunet_chunk": tu}
+            "tunet_chunk": tu, "tails": tail_rows(tails, randn, nbytes)}
+
+
+def tail_rows(tails, randn, nbytes):
+    """K8's residual tails of norm_rows: per chunk (``tails``: name ->
+    Counter of (shape, raw residual)) the fused tails' ms (``ms``; the C
+    entry's ``alone_ms``, on chip without a raw residual's own K8), the
+    unfused sequences' (``unfused_ms``), the plain version's and the bound
+    (a and the residual read once, the output written once, bf16), with
+    each site's row."""
+    import torch
+    import torch.nn.functional as F
+
+    from hybrid_ctunet_tpu_torch.ops import norm
+
+    bf = torch.bfloat16
+    tallies = {name: Tally(library=False) for name in tails}
+    extra = {name: {"unfused_ms": 0.0, "alone_ms": 0.0, "calls": 0} for name in tails}
+    sites = []
+    for shape, raw in sorted(set().union(*tails.values())):
+        a = randn(*shape, dtype=bf, std=2.0, mean=0.5)
+        r = randn(*shape, dtype=bf, std=2.0, mean=0.5 if raw else 0.0)
+        what = f"instance_norm tail {shape} {'raw' if raw else 'as is'}"
+
+        def fused():
+            return norm.instance_norm_add_leaky(a, r, raw)
+
+        def unfused():
+            return F.leaky_relu(norm.instance_norm(a) + (norm.instance_norm(r) if raw else r),
+                                0.01)
+
+        def plain():
+            res = norm.reference_instance_norm(r) if raw else r
+            return F.leaky_relu(norm.reference_instance_norm(a) + res, 0.01)
+
+        got = fused()
+        if not torch.equal(got, unfused()):
+            raise AssertionError(f"{what}: the fused tail differs from the unfused sequence")
+        if not torch.equal(got, fused()):
+            raise AssertionError(f"{what}: a rerun is not bit-identical")
+        err = check_bf16(what, got, plain())
+        del got
+        fold = raw and norm.folds(shape)
+        ms, unf, pl = cuda_time_ms(fused), cuda_time_ms(unfused), cuda_time_ms(plain)
+        fn, args, _, _ = norm.tail_call(a, r, fold)  # on chip, without the residual's K8
+        alone = cuda_time_ms(lambda: fn(*args))
+        site = Tally(library=False)
+        site.add(err, 1, ms, pl, 3 * nbytes(a), 0)
+        row = site.row()
+        regime = "onchip" if norm.plan(shape[0], math.prod(shape[1:4]), shape[-1]).onchip \
+            else "two-pass"
+        log(f"  {what} ({regime}{', folded' if fold else ''}; bit-identical to the unfused "
+            f"sequence and on a rerun): {ms!r} ms, C entry alone {alone!r} ms, unfused {unf!r} "
+            f"ms, plain {pl!r} ms, bound {row['bound_ms']!r} ms")
+        calls = {name: tails[name].get((shape, raw), 0) for name in tails}
+        for name, n in calls.items():
+            if n:
+                tallies[name].add(err, n, ms, pl, 3 * nbytes(a), 0)
+                extra[name]["unfused_ms"] += n * unf
+                extra[name]["alone_ms"] += n * alone
+                extra[name]["calls"] += n
+        sites.append({"x": list(shape), "raw": raw, "fold": fold, "regime": regime,
+                      "calls": calls, **row, "unfused_ms": unf, "kernel_alone_ms": alone})
+        del a, r
+    out = {}
+    for name in tails:
+        out[name] = {**tallies[name].row(), **extra[name]}
+        log(f"  instance_norm tails per {name} chunk ({extra[name]['calls']} calls): fused "
+            f"{out[name]['ms']!r} ms, unfused {out[name]['unfused_ms']!r} ms, bound "
+            f"{out[name]['bound_ms']!r} ms")
+    return {"chunks": out, "sites": sites}
 
 
 def winograd_rows(randn, nbytes):
@@ -718,9 +820,17 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
     ViT block, each ResNet stage's bottlenecks after the first) run their
     forward again in the backward, so their K8 and K9 sites launch twice a
     step (a ViT block launches no kernel: its attention is plain and its
-    3072-wide FFN lies outside K3's gate)."""
+    3072-wide FFN lies outside K3's gate). Each residual tail (a ResBlock's
+    or Bottleneck's last norm, add and LeakyReLU) is one K8 call, counted
+    on ``instance_norm.residual`` too; where it folds its projection's norm
+    in (``ops.norm.folds`` at the tail's shape, from a meta forward of a
+    4-window chunk of ``bench.ROI``) the two norms are one K8 record."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
     from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet
-    from hybrid_ctunet_tpu_torch.models import layers, resnet3d, vit3d
+    from hybrid_ctunet_tpu_torch.models import layers, vit3d
+    from hybrid_ctunet_tpu_torch.ops import norm
 
     def dropping(site):
         return training and site.rate > 0
@@ -733,9 +843,17 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
         return sum(isinstance(m, layers.ConvNorm) and m.kind == "instance"
                    for mod in mods for m in mod.modules())
 
+    x = torch.empty(CHUNK, *bench.ROI, 1, device="meta")
+    _, tails = record_norm_sites(model, x, **({"res_only": True} if res_only else {}))
+
+    def add_tails(inside=None):
+        mine = [(shape, raw) for n, shape, raw in tails if inside is None or id(n) in inside]
+        got["instance_norm.residual"] += len(mine)
+        got["instance_norm"] -= sum(raw and norm.folds(shape) for shape, raw in mine)
+
     got = {"scatter_add_windows": 1, "window_attention": 0, "ffn": 0, "ffn_pair": 0,
            "pixel_shuffle_linear": 0, "transp_conv_kxs": 0, "pixelweight": 0,
-           "instance_norm": 0, "conv3x3_winograd": 0}
+           "instance_norm": 0, "conv3x3_winograd": 0, "instance_norm.residual": 0}
     if not isinstance(model, CUNet):
         stages = list(model.vit_encoder.layers[:3 if res_only else 4])
         got["window_attention"] = count(stages, layers.MultiAxisWindowAttention,
@@ -754,6 +872,7 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
         got["instance_norm"] += norms([model.convnet, *dec])  # stem + blocks
         # K9: the stride-1 3^3 conv2 of the 32-wide (stage-1) bottlenecks
         got["conv3x3_winograd"] = winograd_sites(model.convnet.modules())
+    add_tails()
     if training and remat:
         wrapped = [m for m in model.modules()
                    if isinstance(m, (layers.ResBlock, vit3d.TransformerBlock))]
@@ -761,8 +880,17 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
             stages = (getattr(model.convnet, f"layer{s}") for s in range(1, 5))
             wrapped += [b for stage in stages for b in list(stage)[1:]]
         got["instance_norm"] += norms(wrapped)
+        add_tails({id(m) for w in wrapped for m in w.modules()})
         got["conv3x3_winograd"] += winograd_sites(m for w in wrapped for m in w.modules())
     return got
+
+
+def counted_launches():
+    """The launch counters: each kernel's, and K8's residual tails
+    (``instance_norm.residual``)."""
+    from hybrid_ctunet_tpu_torch import kernels
+
+    return {**kernels.launch_counts(), "instance_norm.residual": kernels.residual_launches()}
 
 
 def winograd_sites(mods):
@@ -801,6 +929,10 @@ def per_call_checks():
         out = ffn.reference_ffn(x, *p)
         return x + out if residual else out
 
+    def plain_tail(a, r, r_raw=False, eps=1e-5, negative_slope=0.01):
+        res = norm.reference_instance_norm(r, eps) if r_raw else r
+        return F.leaky_relu(norm.reference_instance_norm(a, eps) + res, negative_slope)
+
     plains = (
         (attention, "window_attention", attention.reference_window_attention_table),
         (ffn, "ffn", plain_ffn),
@@ -812,6 +944,7 @@ def per_call_checks():
         (norm, "instance_norm_leaky",
          lambda x, eps=1e-5, negative_slope=0.01: F.leaky_relu(
              norm.reference_instance_norm(x, eps), negative_slope)),
+        (norm, "instance_norm_add_leaky", plain_tail),
         (winograd, "conv3x3_winograd", winograd.reference_conv3x3_winograd),
     )
 
@@ -834,6 +967,8 @@ def per_call_checks():
                 return out
 
             f.launches = getattr(kernel, "launches", 0)  # the wrappers count on their module name
+            if hasattr(kernel, "residual_launches"):
+                f.residual_launches = kernel.residual_launches
             return f
 
         for (m, n, plain), (_, _, kernel) in zip(plains, saved):
@@ -958,7 +1093,7 @@ def phase_tunet(device, work):
     logits, mask = bench.segment(engine, volume)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = counted_launches()
     log(f"  first volume (warm-up) {first!r} s")
     check_launches("TUNet volume", counts, [(tree_launches(model), chunks)])
     check_map("TUNet logits", logits)
@@ -1003,7 +1138,7 @@ def phase_hybrid(tunet, tu_engine, volume, device):
     res_map, tu_map, prob, mask = bench.segment_hybrid(ct_engine, tu_engine, volume)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    hybrid_counts = kernels.launch_counts()
+    hybrid_counts = counted_launches()
     log(f"  first hybrid volume (warm-up) {first!r} s")
     check_launches("hybrid volume", hybrid_counts,
                    [(ct_tree, ct_chunks), (tree_launches(tunet), tu_chunks)])
@@ -1038,7 +1173,7 @@ def phase_hybrid(tunet, tu_engine, volume, device):
     with torch.inference_mode():
         outs = cunet(x)
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = counted_launches()
     tree = tree_launches(cunet)
     tree["scatter_add_windows"] = 0  # no engine here
     check_launches("CUNet 4 windows", counts, [(tree, 1)])
@@ -1057,8 +1192,9 @@ def grad_cases(device):
     site's width, K6 at the three UpCatConvBlock sites of CUNet (decoder 1
     also the CTUNet's), K7 at C 128, K8 at 4x96^3x64, at the deepest stage
     and at the UpCatConvBlocks' ResBlocks (with LeakyReLU and without), K9
-    at the ResNet stage-1 conv2 and its fused form at 96^3. The
-    plain path of K9 is the direct conv, which its backward differentiates."""
+    at the ResNet stage-1 conv2 and its fused form at 96^3, K8's residual
+    tail at both plans and both residual forms. The plain path of K9 is the
+    direct conv, which its backward differentiates."""
     import torch
     import torch.nn.functional as F
 
@@ -1118,6 +1254,19 @@ def grad_cases(device):
     for shape in ups[::-1]:
         cases.append((f"instance_norm {shape}", norm.instance_norm, norm.reference_instance_norm,
                       (randn(*shape, dtype=bf, std=2.0, mean=0.5),)))
+    # the residual tails: the TUNet's folded 96^3 ResBlocks, a folded and an
+    # identity bottleneck of stage 1, and both forms on chip (stage 3)
+    for shape, raw in (((CHUNK, 96, 96, 96, 64), True), ((CHUNK, 48, 48, 96, 128), True),
+                       ((CHUNK, 48, 48, 96, 128), False), ((CHUNK, 12, 12, 24, 512), True),
+                       ((CHUNK, 12, 12, 24, 512), False)):
+        def plain_tail(a, r, raw=raw):
+            res = norm.reference_instance_norm(r) if raw else r
+            return F.leaky_relu(norm.reference_instance_norm(a) + res, 0.01)
+
+        cases.append((f"instance_norm_add_leaky {shape} raw={raw}",
+                      lambda a, r, raw=raw: norm.instance_norm_add_leaky(a, r, raw), plain_tail,
+                      (randn(*shape, dtype=bf, std=2.0, mean=0.5),
+                       randn(*shape, dtype=bf, std=2.0, mean=0.5 if raw else 0.0))))
     w = randn(32, 32, 3, 3, 3, std=(2.0 / (27 * 32)) ** 0.5)
     cases.append(("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3,
                   (randn(CHUNK, 48, 48, 96, 32, dtype=bf), w.to(bf))))
@@ -1259,7 +1408,7 @@ def run_steps(step, lr, trees, batches, device, steps_timed: int, remats=(True, 
             timer.tic()
             metrics = step(x, y, lr)
             dt = timer.toc(metrics)
-        counts = kernels.launch_counts()
+        counts = counted_launches()
         peak = torch.cuda.max_memory_allocated()
         loss = metrics["loss"].item()
         warm = i < len(remats)
@@ -1460,7 +1609,7 @@ def phase_train_cli(device, work):
     best = train_main.main("ctunet", argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = counted_launches()
     files = sorted(os.listdir(logs))
     log(f"  {wall!r} s; best {best}; files {files}; launches {counts}")
     missing = {"model_hybrid.pt", "model_res.pt", "model_vit.pt", "latest.pt"} - set(files)
@@ -1642,7 +1791,7 @@ def eval_run(work, data, name, entry, argv, trees):
         wall = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    counts = kernels.launch_counts()
+    counts = counted_launches()
     for grid, n, chunks, heads in record["runs"]:
         log(f"  {name}: grid {grid}, {n} windows, {chunks} chunks, {heads} map(s)")
     check_launches(name, counts, [(tree, run[2]) for tree, run in zip(trees, record["runs"])])
@@ -1791,7 +1940,7 @@ def eval_chunk(name, model, device, tree, windows: int = CHUNK, res_only: bool =
     with torch.inference_mode(), per_call_checks() as worst:
         res = model(x, res_only=True) if res_only else model(x)[0]
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()  # the checked wrappers count while they stand
+        counts = counted_launches()  # the checked wrappers count while they stand
     check_launches(f"{name}, eval chunk", counts, [(tree, 1)])
     log(f"  {name}, eval chunk: per-call rel_l2 vs plain on the model's activations (bound "
         f"{BF16_REL_L2}): worst {max(worst.values())!r} over {len(worst)} sites")
@@ -1961,7 +2110,7 @@ def phase_ddp(device, work, eval_argv):
         got = dp_step(image, label, lr)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        counts = counted_launches()
     finally:
         dist.destroy_process_group()
     check_launches("DDP step", counts, [(trees[True], 1)])
@@ -2071,7 +2220,7 @@ def phase_measure(device):
     with k1_checks(checked):
         _, _, prob, mask = bench.segment_hybrid(ct8, tu8, volume)
     torch.cuda.synchronize()
-    counts8 = kernels.launch_counts()
+    counts8 = counted_launches()
     check_launches(f"hybrid volume at sw {SW_WIDE}", counts8,
                    [(tree_launches(ctunet, res_only=True), chunks[0]),
                     (tree_launches(tunet), chunks[1])])
@@ -2195,7 +2344,7 @@ def phase_single_cli(device, work, model_name: str):
         sys.argv = saved
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = counted_launches()
     files = sorted(os.listdir(logs))
     log(f"  exit {code}; {wall!r} s; files {files}; launches {counts}")
     best_file = SINGLE_FILES[model_name]

@@ -32,6 +32,17 @@
 //   combine, folded in), then walks the rows of statistics block (sp, b)
 //   from the last, so that it first finds in L2 what that block read last.
 //   x is read twice: a floor of 1.5x the bound, less what L2 keeps.
+//
+// The residual tail of a ResBlock or Bottleneck, leaky_relu(norm(a) + r),
+// is the same kernels with a second operand in the store (template MODE):
+// ADD streams r (as stored, a's shape) beside a's pieces, with the same
+// 16-byte loads and eight in flight; FOLD (two passes only) takes r raw,
+// the statistics pass summing a and r in one launch (grid z 2) and the
+// normalize pass normalizing both. The rounding points are those of the
+// unfused sequence, so the result is bit for bit K8 + torch's add and
+// leaky_relu: y = bf16(norm(a)), r or bf16(norm(r)), s = bf16(y + r),
+// out = bf16(s * slope) where s < 0. Each tensor's sums are reduced in the
+// order K8 takes them alone.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +56,8 @@ constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_SLAB = 110592;  // bytes of x a CTA holds on chip (ops/norm.py SLAB_BYTES)
 constexpr int MAX_C = 2048;
 constexpr int BATCH = 8;  // 16-byte loads a thread keeps in flight
+constexpr int FOLD_MAX_C = 512;  // widest C of a folded tail (ops/norm.py FOLD_MAX_C)
+enum Mode { PLAIN = 0, ADD = 1, FOLD = 2 };
 
 __device__ __forceinline__ void stats_of(float s1, float s2, long long S, float eps, float* mean,
                                          float* rstd) {
@@ -82,14 +95,32 @@ __device__ __forceinline__ uint4 normalize8(uint4 raw, const float* mean, const 
   return packed;
 }
 
+// 8 channels of the tail: s = bf16(y + r), then bf16(s * slope) where s < 0
+__device__ __forceinline__ uint4 add_leaky8(uint4 y, uint4 r, float slope) {
+  const bf16* a = reinterpret_cast<const bf16*>(&y);
+  const bf16* b = reinterpret_cast<const bf16*>(&r);
+  uint4 packed;
+  bf16* o = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bf16 sb = __float2bfloat16(__bfloat162float(a[e]) + __bfloat162float(b[e]));
+    const float f = __bfloat162float(sb);
+    o[e] = f < 0.f ? __float2bfloat16(f * slope) : sb;
+  }
+  return packed;
+}
+
 // ---------------------------------------------------------------------------
 // On chip: grid (k, C / CG, B), cluster (k, 1, 1); CTA q of the cluster holds
 // rows [q * rows, (q + 1) * rows) of channels [CG * blockIdx.y, + CG) of
-// sample blockIdx.z; dynamic shared memory rows * CG * 2 bytes.
+// sample blockIdx.z; dynamic shared memory rows * CG * 2 bytes. MODE PLAIN
+// or ADD (r read from global memory in the normalize loop).
 constexpr int CG = 64;  // channels of an on-chip slab: 128 bytes a row
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-    in_onchip_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long S, int C,
-                     int rows, float eps, int act, float slope) {
+    in_onchip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                     bf16* __restrict__ y, long long S, int C, int rows, float eps, int act,
+                     float slope) {
   constexpr int CV = CG / 8;         // 16-byte pieces of a row
   constexpr int RPI = THREADS / CV;  // rows a pass of the block covers
   extern __shared__ uint4 slab[];    // [rows][CV]
@@ -177,23 +208,45 @@ __global__ void __launch_bounds__(THREADS)
     mean[e] = stat[0][cv * 8 + e];
     rstd[e] = stat[1][cv * 8 + e];
   }
-  for (int r = rr; r < n; r += RPI)
-    *reinterpret_cast<uint4*>(dst + (long long)r * C) =
-        normalize8(slab[r * CV + cv], mean, rstd, act, slope);
+  if constexpr (MODE == PLAIN) {
+    for (int i = rr; i < n; i += RPI)
+      *reinterpret_cast<uint4*>(dst + (long long)i * C) =
+          normalize8(slab[i * CV + cv], mean, rstd, act, slope);
+  } else {
+    const bf16* rsrc = res + (dst - y);
+    for (int rb = rr; rb < n; rb += BATCH * RPI) {
+      uint4 w[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = rb + u * RPI;
+        if (i < n) w[u] = __ldg(reinterpret_cast<const uint4*>(rsrc + (long long)i * C));
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = rb + u * RPI;
+        if (i < n)
+          *reinterpret_cast<uint4*>(dst + (long long)i * C) =
+              add_leaky8(normalize8(slab[i * CV + cv], mean, rstd, 0, 0.f), w[u], slope);
+      }
+    }
+  }
   // ... and this one leaves once the others have read its partial
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
-// Large: statistics, grid (splits, B). Block (sp, b) owns rows
-// [sp * chunk, (sp + 1) * chunk) of sample b, chunk = ceil(S / splits).
+// Large: statistics, grid (splits, B, tensors). Block (sp, b, t) owns rows
+// [sp * chunk, (sp + 1) * chunk) of sample b of x0 (t 0) or x1 (t 1, a
+// folded tail's raw residual), chunk = ceil(S / splits); tensor t's
+// partials follow tensor 0's.
 __global__ void __launch_bounds__(THREADS)
-    in_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, long long S, int C,
-                    int splits) {
+    in_stats_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
+                    float* __restrict__ part, long long S, int C, int splits) {
   __shared__ float red[2][THREADS * 8];
   const int CV = C / 8, RPI = THREADS / CV;
   const int cv = threadIdx.x % CV, rr = threadIdx.x / CV;
   const int sp = blockIdx.x, b = blockIdx.y;
+  const bf16* x = blockIdx.z ? x1 : x0;
   const long long chunk = (S + splits - 1) / splits;
   const long long r0 = sp * chunk, r1 = r0 + chunk < S ? r0 + chunk : S;
   float s1[8], s2[8];
@@ -219,7 +272,7 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   // thread (rr, cv) wrote channels cv*8.. at red[.][(rr*CV + cv)*8 + e], i.e.
   // red[.][rr*C + c]: sum over rr in order
-  float* out = part + ((long long)b * splits + sp) * 2 * C;
+  float* out = part + (((long long)blockIdx.z * gridDim.y + b) * splits + sp) * 2 * C;
   for (int c = threadIdx.x; c < C; c += THREADS) {
     float a1 = 0.f, a2 = 0.f;
     for (int q = 0; q < RPI; ++q) {
@@ -233,70 +286,96 @@ __global__ void __launch_bounds__(THREADS)
 
 // Large: normalize, grid (splits, B), the statistics pass's blocks. The
 // sample's 2C sums come first: P = 256 / 2C threads (at least 1) per sum,
-// thread p adding splits p, p + P, ... in order, then the P results in order.
+// thread p adding splits p, p + P, ... in order, then the P results in order
+// (FOLD: a's sums, then r's, each so). ADD adds r as stored, FOLD r
+// normalized by its own statistics; both end in the LeakyReLU.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-    in_normalize_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
-                        const float* __restrict__ part, long long S, int C, int splits,
-                        float eps, int act, float slope) {
-  __shared__ float sums[2 * MAX_C];
-  __shared__ float scratch[2 * MAX_C > THREADS ? 2 * MAX_C : THREADS];
+    in_normalize_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                        bf16* __restrict__ y, const float* __restrict__ part, long long S, int C,
+                        int splits, float eps, int act, float slope) {
+  constexpr int NT = MODE == FOLD ? 2 : 1;  // tensors normalized
+  constexpr int SC = MODE == FOLD ? FOLD_MAX_C : MAX_C;
+  __shared__ float sums[NT * 2 * SC];
+  __shared__ float scratch[2 * SC > THREADS ? 2 * SC : THREADS];
   const int sp = blockIdx.x, b = blockIdx.y;
   const int V = 2 * C, P = V < THREADS ? THREADS / V : 1;
-  const float* pb = part + (long long)b * splits * V;
-  for (int i = threadIdx.x; i < V * P; i += THREADS) {
-    const int v = i % V, p = i / V;
-    float a = 0.f;
-    for (int q = p; q < splits; q += P) a += pb[(long long)q * V + v];
-    scratch[i] = a;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const float* pb = part + ((long long)t * gridDim.y + b) * splits * V;
+    for (int i = threadIdx.x; i < V * P; i += THREADS) {
+      const int v = i % V, p = i / V;
+      float a = 0.f;
+      for (int q = p; q < splits; q += P) a += pb[(long long)q * V + v];
+      scratch[i] = a;
+    }
+    __syncthreads();
+    for (int v = threadIdx.x; v < V; v += THREADS) {
+      float a = 0.f;
+      for (int p = 0; p < P; ++p) a += scratch[p * V + v];
+      sums[t * V + v] = a;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int v = threadIdx.x; v < V; v += THREADS) {
-    float a = 0.f;
-    for (int p = 0; p < P; ++p) a += scratch[p * V + v];
-    sums[v] = a;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const float s1 = sums[c], s2 = sums[C + c];
-    stats_of(s1, s2, S, eps, &sums[c], &sums[C + c]);
+  for (int c = threadIdx.x; c < NT * C; c += THREADS) {
+    float* st = sums + (c / C) * V + c % C;
+    const float s1 = st[0], s2 = st[C];
+    stats_of(s1, s2, S, eps, &st[0], &st[C]);
   }
   __syncthreads();
 
   const int CV = C / 8, RPI = THREADS / CV;
   const int cv = threadIdx.x % CV, rr = threadIdx.x / CV;
-  float mean[8], rstd[8];
+  float mean[NT][8], rstd[NT][8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    mean[e] = sums[cv * 8 + e];
-    rstd[e] = sums[C + cv * 8 + e];
-  }
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      mean[t][e] = sums[t * V + cv * 8 + e];
+      rstd[t][e] = sums[t * V + C + cv * 8 + e];
+    }
   const long long chunk = (S + splits - 1) / splits;
   const long long r0 = sp * chunk, r1 = r0 + chunk < S ? r0 + chunk : S;
   if (r1 <= r0) return;
   const long long off = (long long)b * S * C + cv * 8;
   for (long long rb = r0 + ((r1 - r0 - 1) / (BATCH * RPI)) * BATCH * RPI; rb >= r0;
        rb -= BATCH * RPI) {
-    uint4 v[BATCH];
+    uint4 v[BATCH], w[MODE == PLAIN ? 1 : BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
-      const long long r = rb + u * RPI + rr;
-      if (r < r1) v[u] = __ldg(reinterpret_cast<const uint4*>(x + off + r * C));
+      const long long i = rb + u * RPI + rr;
+      if (i < r1) {
+        v[u] = __ldg(reinterpret_cast<const uint4*>(x + off + i * C));
+        if constexpr (MODE != PLAIN)
+          w[u] = __ldg(reinterpret_cast<const uint4*>(res + off + i * C));
+      }
     }
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
-      const long long r = rb + u * RPI + rr;
-      if (r < r1)
-        *reinterpret_cast<uint4*>(y + off + r * C) = normalize8(v[u], mean, rstd, act, slope);
+      const long long i = rb + u * RPI + rr;
+      if (i >= r1) continue;
+      uint4 o;
+      if constexpr (MODE == PLAIN) {
+        o = normalize8(v[u], mean[0], rstd[0], act, slope);
+      } else if constexpr (MODE == ADD) {
+        o = add_leaky8(normalize8(v[u], mean[0], rstd[0], 0, 0.f), w[u], slope);
+      } else {
+        o = add_leaky8(normalize8(v[u], mean[0], rstd[0], 0, 0.f),
+                       normalize8(w[u], mean[1], rstd[1], 0, 0.f), slope);
+      }
+      *reinterpret_cast<uint4*>(y + off + i * C) = o;
     }
   }
 }
 
-static cudaError_t launch_onchip(const bf16* x, bf16* y, int B, long long S, int C, int k,
-                                 int rows, float eps, int act, float slope, cudaStream_t s) {
+template <int MODE>
+static cudaError_t launch_onchip(const bf16* x, const bf16* r, bf16* y, int B, long long S, int C,
+                                 int k, int rows, float eps, int act, float slope,
+                                 cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        in_onchip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SLAB);
+        in_onchip_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SLAB);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -312,7 +391,39 @@ static cudaError_t launch_onchip(const bf16* x, bf16* y, int B, long long S, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, in_onchip_kernel, x, y, S, C, rows, eps, act, slope);
+  return cudaLaunchKernelEx(&cfg, in_onchip_kernel<MODE>, x, r, y, S, C, rows, eps, act, slope);
+}
+
+template <int MODE>
+static int run(const void* x, const void* r, void* y, void* work, int B, long long S, int C,
+               int cluster, int rows, int splits, float eps, int act, float slope, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 || THREADS % (C / 8))
+    return (int)cudaErrorInvalidValue;
+  if (((size_t)x | (size_t)r | (size_t)y) % 16) return (int)cudaErrorMisalignedAddress;
+  if (MODE != PLAIN && r == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = (const bf16*)x;
+  const bf16* rb = (const bf16*)r;
+  bf16* yb = (bf16*)y;
+  if (cluster > 0) {
+    if (MODE == FOLD || C % CG || cluster > MAX_CLUSTER || rows < 1 ||
+        (long long)rows * cluster < S || (long long)rows * CG * 2 > MAX_SLAB)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        launch_onchip<MODE == FOLD ? PLAIN : MODE>(xb, rb, yb, B, S, C, cluster, rows, eps, act,
+                                                   slope, s);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  if (splits < 1 || splits > 65535 || work == nullptr || (MODE == FOLD && C > FOLD_MAX_C))
+    return (int)cudaErrorInvalidValue;
+  float* part = (float*)work;
+  in_stats_kernel<<<dim3(splits, B, MODE == FOLD ? 2 : 1), THREADS, 0, s>>>(xb, rb, part, S, C,
+                                                                           splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  in_normalize_kernel<MODE><<<dim3(splits, B), THREADS, 0, s>>>(xb, rb, yb, part, S, C, splits,
+                                                                eps, act, slope);
+  return (int)cudaGetLastError();
 }
 
 // x, y: (B, S, C) bf16, 16-byte aligned, C % 8 == 0 and (C / 8) dividing 256.
@@ -322,25 +433,15 @@ static cudaError_t launch_onchip(const bf16* x, bf16* y, int B, long long S, int
 extern "C" int instance_norm(const void* x, void* y, void* work, int B, long long S, int C,
                              int cluster, int rows, int splits, float eps, int act, float slope,
                              void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 || THREADS % (C / 8))
-    return (int)cudaErrorInvalidValue;
-  if (((size_t)x | (size_t)y) % 16) return (int)cudaErrorMisalignedAddress;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bf16* xb = (const bf16*)x;
-  bf16* yb = (bf16*)y;
-  if (cluster > 0) {
-    if (C % CG || cluster > MAX_CLUSTER || rows < 1 ||
-        (long long)rows * cluster < S || (long long)rows * CG * 2 > MAX_SLAB)
-      return (int)cudaErrorInvalidValue;
-    const cudaError_t err = launch_onchip(xb, yb, B, S, C, cluster, rows, eps, act, slope, s);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
-  }
-  if (splits < 1 || splits > 65535 || work == nullptr) return (int)cudaErrorInvalidValue;
-  float* part = (float*)work;
-  in_stats_kernel<<<dim3(splits, B), THREADS, 0, s>>>(xb, part, S, C, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  in_normalize_kernel<<<dim3(splits, B), THREADS, 0, s>>>(xb, yb, part, S, C, splits, eps, act,
-                                                          slope);
-  return (int)cudaGetLastError();
+  return run<PLAIN>(x, nullptr, y, work, B, S, C, cluster, rows, splits, eps, act, slope, stream);
+}
+
+// The residual tail, y = leaky_relu(norm(x) + r), r (B, S, C) bf16 like x:
+// as stored when fold is 0; when fold is 1, r raw and normalized by its own
+// statistics (two passes only, C <= FOLD_MAX_C, work twice the size).
+extern "C" int instance_norm_tail(const void* x, const void* r, void* y, void* work, int B,
+                                  long long S, int C, int cluster, int rows, int splits, float eps,
+                                  int fold, float slope, void* stream) {
+  return fold ? run<FOLD>(x, r, y, work, B, S, C, cluster, rows, splits, eps, 1, slope, stream)
+              : run<ADD>(x, r, y, work, B, S, C, cluster, rows, splits, eps, 1, slope, stream);
 }

@@ -100,16 +100,29 @@ def wrapper(info: KernelInfo):
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's launch counter and the recompute counter."""
+    """Zero every wrapper's launch counter, K8's tail counter and the
+    recompute counter."""
     from ..ops.recompute import checkpoint
 
     for info in KERNELS:
         wrapper(info).launches = 0
+    _k8().residual_launches = 0
     checkpoint.recomputes = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {info.name: wrapper(info).launches for info in KERNELS}
+
+
+def _k8():
+    return wrapper(next(info for info in KERNELS if info.name == "instance_norm"))
+
+
+def residual_launches() -> int:
+    """K8 calls since the last reset that took a residual block's tail
+    (``ops.norm.instance_norm.residual_launches``), each also counted once
+    on ``instance_norm``."""
+    return _k8().residual_launches
 
 
 def recomputes() -> int:

@@ -165,6 +165,20 @@ class ConvNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         return leaky_relu(y) if self.act else y
 
+    def tail(self, a, residual, residual_norm=None):
+        """A residual block's tail: LeakyReLU(self(a) + residual), the
+        residual first normalized by ``residual_norm`` (the projection
+        shortcut's norm) when given. Instance norms on the card take K8's
+        tail (``ops.norm.instance_norm_add_leaky``: one normalize pass that
+        adds the residual, folding its norm in at two-pass sites); elsewhere
+        the composition runs as written."""
+        if self.kind == "instance" and norm_ops.tail_supports(a, residual):
+            return norm_ops.instance_norm_add_leaky(a, residual,
+                                                    r_raw=residual_norm is not None)
+        if residual_norm is not None:
+            residual = residual_norm(residual)
+        return leaky_relu(self(a) + residual)
+
 
 def convert_sync_batchnorm(model: nn.Module) -> nn.Module:
     """Every BatchNorm of ``model`` syncs its moments over the process group
@@ -411,9 +425,9 @@ class ResBlock(nn.Module):
         if skip is not None:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
         out = self.norm1(self.conv1(x))
-        out = self.norm2(self.conv2(out))
-        residual = self.norm3(self.conv3(x)) if self.needs_proj else x
-        return leaky_relu(out + residual)
+        if self.needs_proj:
+            return self.norm2.tail(self.conv2(out), self.conv3(x), self.norm3)
+        return self.norm2.tail(self.conv2(out), x)
 
 
 class ConvTranspose3d(nn.Module):

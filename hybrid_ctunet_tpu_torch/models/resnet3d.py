@@ -20,7 +20,6 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.act import leaky_relu
 from ..ops.conv import _triple
 from .layers import Conv3d, ConvNorm, maybe_remat
 
@@ -60,9 +59,10 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         out = self.norm1(self.conv1(x))
         out = self.norm2(self.conv2(out))
-        out = self.norm3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return leaky_relu(out + residual)
+        if self.downsample is None:
+            return self.norm3.tail(self.conv3(out), x)
+        conv, norm = self.downsample
+        return self.norm3.tail(self.conv3(out), conv(x), norm)
 
 
 class ResNet3D(nn.Module):

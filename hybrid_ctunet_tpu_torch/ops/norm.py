@@ -11,6 +11,9 @@ InstanceNorm (+ LeakyReLU) is kernel module K8: ``instance_norm`` and
 (``ops/norm.py:32-58``), not the Pallas kernel: the variance is clamped at 0
 and y is rounded to the activation dtype before the LeakyReLU. The backward
 recomputes through the plain version (``norm_pallas.py:98-114``).
+``instance_norm_add_leaky`` is a residual block's tail, leaky_relu(norm(a) +
+r), in the same kernel's normalize pass (no JAX counterpart: the JAX
+package leaves the add and the activation to XLA).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ _SMS = 132  # H100 SXM streaming multiprocessors
 SLAB_BYTES = 110_592  # csrc/instance_norm.cu MAX_SLAB: x a CTA holds on chip (two an SM)
 GROUP = 64  # csrc/instance_norm.cu CG: channels of an on-chip slab
 MAX_CLUSTER = 8  # CTAs of a (portable) thread-block cluster
+FOLD_MAX_C = 512  # csrc/instance_norm.cu FOLD_MAX_C: widest C of a folded tail
 
 
 def reference_instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -101,16 +105,20 @@ def _workspace(device: torch.device, floats: int) -> torch.Tensor:
     return buf
 
 
-def norm_call(x: torch.Tensor, eps: float = 1e-5, negative_slope=None):
-    """K8's C entry bound to its arguments: ``(fn, args, out, plan)``, where
-    ``fn(*args)`` normalizes ``x`` (B, X, Y, Z, C), contiguous, into ``out``
-    [+ LeakyReLU when ``negative_slope`` is given]."""
+def _plan_of(x: torch.Tensor):
     if not supports(x) or not x.is_contiguous():
         raise ValueError(f"instance_norm kernel: unsupported {x.dtype} {tuple(x.shape)} "
                          f"(contiguous: {x.is_contiguous()})")
     B, C = x.shape[0], x.shape[-1]
     S = x.shape[1] * x.shape[2] * x.shape[3]
-    p = plan(B, S, C)
+    return B, S, C, plan(B, S, C)
+
+
+def norm_call(x: torch.Tensor, eps: float = 1e-5, negative_slope=None):
+    """K8's C entry bound to its arguments: ``(fn, args, out, plan)``, where
+    ``fn(*args)`` normalizes ``x`` (B, X, Y, Z, C), contiguous, into ``out``
+    [+ LeakyReLU when ``negative_slope`` is given]."""
+    B, S, C, p = _plan_of(x)
     work = 0 if p.onchip else _workspace(x.device, B * p.splits * 2 * C).data_ptr()
     out = torch.empty_like(x)
     act = negative_slope is not None
@@ -119,12 +127,40 @@ def norm_call(x: torch.Tensor, eps: float = 1e-5, negative_slope=None):
     return _entry(), args, out, p
 
 
+def tail_call(a: torch.Tensor, r: torch.Tensor, fold: bool, eps: float = 1e-5,
+              negative_slope: float = 0.01):
+    """K8's tail entry bound to its arguments: ``(fn, args, out, plan)``,
+    where ``fn(*args)`` writes leaky_relu(norm(a) + r) into ``out``, ``r``
+    normalized by its own statistics first when ``fold`` (two-pass sites
+    only, :func:`folds`; the C entry refuses others). ``a`` and ``r``
+    contiguous, of one shape, dtype and device."""
+    B, S, C, p = _plan_of(a)
+    if r.shape != a.shape or r.dtype != a.dtype or r.device != a.device or not r.is_contiguous():
+        raise ValueError(f"instance_norm tail: residual {r.dtype} {tuple(r.shape)} on "
+                         f"{r.device} (contiguous: {r.is_contiguous()}) is not a twin of "
+                         f"{tuple(a.shape)}")
+    floats = (2 if fold else 1) * B * p.splits * 2 * C
+    work = 0 if p.onchip else _workspace(a.device, floats).data_ptr()
+    out = torch.empty_like(a)
+    args = (a.data_ptr(), r.data_ptr(), out.data_ptr(), work, B, S, C, p.cluster, p.rows,
+            p.splits, eps, int(fold), float(negative_slope), kernels.stream_ptr(a.device))
+    return _tail_entry(), args, out, p
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     return kernels.bind(
         "instance_norm", "instance_norm", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_entry():
+    return kernels.bind(
+        "instance_norm", "instance_norm_tail", ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
 def _launch(x: torch.Tensor, eps: float, negative_slope) -> torch.Tensor:
@@ -147,6 +183,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 instance_norm.launches = 0
+instance_norm.residual_launches = 0  # fused tails (instance_norm_add_leaky)
 
 
 def instance_norm_leaky(
@@ -160,6 +197,89 @@ def instance_norm_leaky(
     if not x.is_cuda:
         return plain(x)
     return recompute(lambda x: _launch(x, eps, negative_slope), plain, x)
+
+
+def tail_supports(a: torch.Tensor, r: torch.Tensor) -> bool:
+    """Where the fused tail engages: CUDA tensors, K8's gate takes ``a``, and
+    ``r`` has ``a``'s shape, dtype and device, both contiguous."""
+    return (a.is_cuda and supports(a) and r.shape == a.shape and r.dtype == a.dtype
+            and r.device == a.device and a.is_contiguous() and r.is_contiguous())
+
+
+def folds(shape) -> bool:
+    """Whether a tail of ``shape`` (B, X, Y, Z, C) takes a raw residual into
+    K8's passes (normalizing it there): at two-pass sites (24x24x48 and up)
+    of at most ``FOLD_MAX_C`` channels. On chip the residual's own norm is a
+    launch of its own and the tail adds its result."""
+    B, C = shape[0], shape[-1]
+    return C <= FOLD_MAX_C and not plan(B, shape[1] * shape[2] * shape[3], C).onchip
+
+
+class _Tail(torch.autograd.Function):
+    """K8's residual tail under autograd. The forward launches the kernel
+    and saves ``a`` and ``r``; the backward differentiates the plain
+    composition a stage at a time: the LeakyReLU's backward on the sum
+    recomputed, then a's norm, then a folded residual's, so that no two
+    plain norms' fp32 intermediates are held at once (in one graph, a
+    fold's two raised the CTUNet remat train step's peak by ~1.5 GB). The
+    gradients are the plain composition's, op for op."""
+
+    @staticmethod
+    def forward(ctx, run, fold, eps, slope, a, r):
+        ctx.fold, ctx.eps, ctx.slope = fold, eps, slope
+        ctx.save_for_backward(a, r)
+        return run(a, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, r = ctx.saved_tensors
+        need_a, need_r = ctx.needs_input_grad[4:]
+        with torch.no_grad():
+            res = reference_instance_norm(r, ctx.eps) if ctx.fold else r
+        a = a.detach().requires_grad_()
+        with torch.enable_grad():
+            y = reference_instance_norm(a, ctx.eps)
+        g_s = torch.ops.aten.leaky_relu_backward(g, y.detach() + res, ctx.slope, False)
+        del res
+        g_a = torch.autograd.grad(y, a, g_s)[0] if need_a else None
+        del y
+        g_r = g_s if need_r else None
+        if need_r and ctx.fold:
+            r = r.detach().requires_grad_()
+            with torch.enable_grad():
+                g_r = torch.autograd.grad(reference_instance_norm(r, ctx.eps), r, g_s)[0]
+        return None, None, None, None, g_a, g_r
+
+
+def instance_norm_add_leaky(a: torch.Tensor, r: torch.Tensor, r_raw: bool = False,
+                            eps: float = 1e-5, negative_slope: float = 0.01) -> torch.Tensor:
+    """A residual block's tail, leaky_relu(instance_norm(a) + r), where ``r``
+    is the residual as is or, with ``r_raw``, the raw projection shortcut
+    whose InstanceNorm is taken here too. CPU tensors take the plain
+    composition; CUDA tensors (:func:`tail_supports`) launch K8's tail
+    entry: one normalize pass that adds ``r`` and applies the LeakyReLU,
+    bit for bit the unfused K8, add and LeakyReLU. A raw ``r`` is folded
+    into the same passes where :func:`folds`, else normalized by K8 first.
+    Differentiable through the plain composition (:class:`_Tail`). Counted
+    on ``instance_norm.launches`` (one a normalize record) and
+    ``instance_norm.residual_launches`` (one a tail)."""
+    if not a.is_cuda:
+        res = reference_instance_norm(r, eps) if r_raw else r
+        return leaky_relu(reference_instance_norm(a, eps) + res, negative_slope)
+    fold = r_raw and folds(a.shape)
+    if r_raw and not fold:
+        r = instance_norm(r, eps)
+
+    def run(a, r):
+        fn, args, out, _ = tail_call(a, r, fold, eps, negative_slope)
+        kernels.check(fn(*args), "instance_norm_tail")
+        instance_norm.launches += 1
+        instance_norm.residual_launches += 1
+        return out
+
+    if not (torch.is_grad_enabled() and (a.requires_grad or r.requires_grad)):
+        return run(a, r)
+    return _Tail.apply(run, fold, eps, negative_slope, a, r)
 
 
 def layer_norm(

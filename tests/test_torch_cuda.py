@@ -366,6 +366,43 @@ def test_instance_norm_regimes(dev, shape, onchip, cluster, act):
     assert torch.equal(got, run(x))
 
 
+# every residual tail of the three models at a 4-window batch (K8 tail shapes)
+_TAIL_SITES = [(4, 96, 96, 96, 64), (4, 48, 48, 96, 128), (4, 24, 24, 48, 256),
+               (4, 12, 12, 24, 512), (4, 6, 6, 12, 1024)]
+_REGIME_SHAPES = [(1, 1, 1, 31, 64), (1, 3, 5, 7, 64), (1, 7, 17, 29, 128), (4, 1, 1, 3455, 2048),
+                  (1, 1, 1, 6912, 64), (1, 1, 1, 6913, 64), (1, 1, 1, 6912, 2048),
+                  (1, 1, 1, 6913, 2048), (1, 3, 5, 7, 32), (1, 23, 17, 29, 32),
+                  (2, 40, 40, 37, 128)]
+
+
+@pytest.mark.parametrize("shape", _TAIL_SITES + _REGIME_SHAPES)
+@pytest.mark.parametrize("r_raw", [False, True])
+def test_instance_norm_tail_bit_identical(dev, shape, r_raw):
+    """K8's residual tail against the unfused sequence it replaces (K8 of a
+    [and of the raw residual], torch's add and LeakyReLU), bit for bit, on
+    both plans, folded where ``norm.folds``; against itself on a rerun and
+    near the plain composition; counted once on each counter."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = (0.5 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    r = ((0.5 if r_raw else 0.0) + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    launches, tails = norm.instance_norm.launches, norm.instance_norm.residual_launches
+    got = norm.instance_norm_add_leaky(a, r, r_raw)
+    folded = r_raw and norm.folds(shape)
+    assert norm.instance_norm.residual_launches == tails + 1
+    assert norm.instance_norm.launches == launches + (2 if r_raw and not folded else 1)
+    res = norm.instance_norm(r) if r_raw else r
+    assert torch.equal(got, torch.nn.functional.leaky_relu(norm.instance_norm(a) + res, 0.01))
+    assert torch.equal(got, norm.instance_norm_add_leaky(a, r, r_raw))
+    plain = norm.reference_instance_norm(r) if r_raw else r
+    _bf16_close(got, torch.nn.functional.leaky_relu(norm.reference_instance_norm(a) + plain,
+                                                    0.01))
+
+
+def test_instance_norm_tail_folds_at_the_projection_sites(dev):
+    """The two-pass projection sites fold; the on-chip ones do not."""
+    assert [norm.folds(s) for s in _TAIL_SITES] == [True, True, True, False, False]
+
+
 def test_wrappers_raise_on_unsupported(dev):
     x = torch.zeros(2, 64, device=dev, dtype=BF)
     p = [torch.zeros(s, device=dev) for s in (64, 64, (256, 64), 256, (64, 256), 64)]
@@ -373,6 +410,9 @@ def test_wrappers_raise_on_unsupported(dev):
         ffn.ffn(x, *p, BF)  # C = 64 has no kernel instance
     with pytest.raises(ValueError):
         norm.instance_norm(torch.zeros(1, 2, 2, 2, 24, device=dev, dtype=BF))  # 3 vectors a row
+    with pytest.raises(ValueError):  # a residual of another shape
+        norm.instance_norm_add_leaky(torch.zeros(1, 2, 2, 2, 64, device=dev, dtype=BF),
+                                     torch.zeros(1, 2, 2, 1, 64, device=dev, dtype=BF))
     with pytest.raises(ValueError):
         shuffle.transp_conv_kxs(torch.zeros(1, 2, 2, 2, 48, device=dev, dtype=BF),
                                 torch.zeros(48, 64, 2, 2, 2, device=dev), BF)
@@ -449,6 +489,9 @@ def _kernel_and_plain(dev):
     ws, bs = _randn(gen, 128, 32, std=32 ** -0.5, dev=dev), _randn(gen, 128, std=0.1, dev=dev)
     wt = _randn(gen, 256, 128, 2, 2, 2, std=0.05, dev=dev)
     xn = (1 + 2 * torch.randn(2, 4, 6, 8, 64, generator=gen, device=dev)).to(BF)
+    # residual tails: on chip, and two passes (S 8000) where a raw residual folds
+    tails = [tuple((1 + 2 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+                   for _ in range(2)) for shape in ((2, 4, 6, 8, 64), (2, 20, 20, 20, 64))]
     xw = _randn(gen, 1, 4, 6, 8, 32, dtype=BF, dev=dev)
     ww = _randn(gen, 32, 32, 3, 3, 3, std=0.05, dev=dev)
     sc, bi = 1 + _randn(gen, 1, 32, std=0.1, dev=dev), _randn(gen, 1, 32, std=0.1, dev=dev)
@@ -467,6 +510,12 @@ def _kernel_and_plain(dev):
          lambda a, b, *p: pixelweight.reference_pixelweight(a, b, p, BF), (x128, x128 * 0.5, *pw)),
         ("instance_norm_leaky", norm.instance_norm_leaky,
          lambda x: torch.nn.functional.leaky_relu(norm.reference_instance_norm(x), 0.01), (xn,)),
+        *[(f"instance_norm_add_leaky {tuple(t[0].shape)} raw={raw}",
+           lambda a, r, raw=raw: norm.instance_norm_add_leaky(a, r, raw),
+           lambda a, r, raw=raw: torch.nn.functional.leaky_relu(
+               norm.reference_instance_norm(a)
+               + (norm.reference_instance_norm(r) if raw else r), 0.01), t)
+          for t in tails for raw in (False, True)],
         ("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3, (xw, ww)),
         ("conv3x3_winograd_fused",
          lambda x, w, s, b: winograd.conv3x3_winograd_fused(x, w, (s, b), in_act=True,
@@ -495,7 +544,10 @@ def test_remat_step_equals_plain_step_on_the_card(dev):
     """A bf16 CUNet (depth 50, 32^3) train step with block remat against
     the step without: the gradients bit for bit (cuDNN deterministic), and
     K8 and K9 launched once more for each site of a rematerialized block
-    (the ResBlocks and each stage's bottlenecks after the first)."""
+    (the ResBlocks and each stage's bottlenecks after the first). Each
+    block's residual tail is one K8 call, counted on
+    ``instance_norm.residual_launches``, and one record fewer where it folds
+    its projection's norm (``norm.folds`` at the tail's shape)."""
     import copy
 
     from hybrid_ctunet_tpu_torch import kernels
@@ -512,6 +564,20 @@ def test_remat_step_equals_plain_step_on_the_card(dev):
     norms = sum(isinstance(m, layers.ConvNorm) for w in wrapped for m in w.modules())
     k9 = sum(isinstance(m, resnet3d.Bottleneck) and m.conv2.conv.weight.shape[1] == 32
              and m.conv2.stride == (1, 1, 1) for m in wrapped)
+    blocks = [m for m in base.modules() if isinstance(m, (layers.ResBlock, resnet3d.Bottleneck))]
+    shapes = {}
+    hooks = [b.register_forward_hook(lambda m, i, o: shapes.__setitem__(m, tuple(o.shape)))
+             for b in blocks]
+    with torch.no_grad():
+        base(x)
+    for h in hooks:
+        h.remove()
+
+    def folds(mods):
+        return sum(norm.folds(shapes[b]) for b in mods
+                   if (b.needs_proj if isinstance(b, layers.ResBlock)
+                       else b.downsample is not None))
+
     grads, counts = {}, {}
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -524,13 +590,17 @@ def test_remat_step_equals_plain_step_on_the_card(dev):
             with layers.remat_blocks(enabled):
                 step(x, y, 0.0)
             torch.cuda.synchronize()
-            counts[enabled] = kernels.launch_counts()
+            counts[enabled] = {**kernels.launch_counts(), "tails": kernels.residual_launches()}
             grads[enabled] = [p.grad for p in model.parameters()]
     finally:
         torch.backends.cudnn.deterministic = saved
     assert all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
     assert counts[False]["conv3x3_winograd"] > 0 and k9 > 0
-    assert counts[True]["instance_norm"] == counts[False]["instance_norm"] + norms
+    assert counts[False]["tails"] == len(blocks) and folds(blocks) > folds(wrapped) > 0
+    assert counts[True]["tails"] == len(blocks) + len(wrapped)
+    convnorms = sum(isinstance(m, layers.ConvNorm) for m in base.modules())
+    assert counts[False]["instance_norm"] == convnorms - folds(blocks)
+    assert counts[True]["instance_norm"] == counts[False]["instance_norm"] + norms - folds(wrapped)
     assert counts[True]["conv3x3_winograd"] == counts[False]["conv3x3_winograd"] + k9
 
 

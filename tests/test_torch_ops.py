@@ -150,3 +150,83 @@ def test_instance_norm_on_offset_activations(rng, act):
     got = fn(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=4e-3, rtol=0)
     assert np.isfinite(got).all() and np.abs(got[1, ..., 3]).max() < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r_raw", [False, True])
+def test_instance_norm_add_leaky_plain_path(rng, dtype, r_raw):
+    """On the CPU the residual tail is exactly the composition it fuses on
+    the card: leaky_relu(instance_norm(a) + r), r normalized first when
+    raw."""
+    a, r = (torch.from_numpy(rng.standard_normal((2, 5, 4, 3, 16)).astype(np.float32) * 2 + 1)
+            .to(dtype) for _ in range(2))
+    got = norm.instance_norm_add_leaky(a, r, r_raw)
+    want = act.leaky_relu(norm.instance_norm(a) + (norm.instance_norm(r) if r_raw else r))
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r_raw", [False, True])
+def test_instance_norm_add_leaky_matches_jax(rng, r_raw):
+    """The tail against the same composition of the JAX package's ops."""
+    a, r = (rng.standard_normal((2, 6, 5, 4, 8)).astype(np.float32) * 2 + 1 for _ in range(2))
+    res = j_norm.instance_norm(jnp.asarray(r)) if r_raw else jnp.asarray(r)
+    want = np.asarray(j_act.leaky_relu(j_norm.instance_norm(jnp.asarray(a)) + res))
+    got = norm.instance_norm_add_leaky(torch.from_numpy(a), torch.from_numpy(r), r_raw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind,dtype", [("instance", torch.bfloat16),
+                                        ("instance", torch.float32),
+                                        ("batch", torch.bfloat16)])
+@pytest.mark.parametrize("projection", [False, True])
+def test_tail_gate_sends_cpu_fp32_and_batch_to_the_plain_path(monkeypatch, rng, kind, dtype,
+                                                              projection):
+    """``ConvNorm.tail`` takes K8's fused tail only for instance norms on the
+    card: CPU tensors, fp32 and BatchNorm run the composition as written."""
+    from hybrid_ctunet_tpu_torch.models import layers
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused tail engaged")
+
+    a, r = (torch.from_numpy(rng.standard_normal((2, 4, 4, 3, 16)).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    assert not norm.tail_supports(a, r)
+    n, rn = layers.ConvNorm(16, kind).eval(), layers.ConvNorm(16, kind).eval()
+    want = act.leaky_relu(n(a) + (rn(r) if projection else r))
+    monkeypatch.setattr(norm, "instance_norm_add_leaky", refuse)
+    got = n.tail(a, r, rn if projection else None)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,fold", [
+    ((4, 96, 96, 96, 64), True),     # the TUNet's ResBlocks
+    ((4, 48, 48, 96, 128), True),    # ResNet stage 1's first bottleneck
+    ((4, 24, 24, 48, 256), True),    # stage 2's
+    ((4, 12, 12, 24, 512), False),   # on chip: the residual's own K8, then the tail
+    ((4, 6, 6, 12, 1024), False),
+    ((1, 1, 1, 6913, 1024), False),  # two passes, wider than a folded tail takes
+])
+def test_instance_norm_tail_folds(shape, fold):
+    assert norm.folds(shape) == fold
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_instance_norm_tail_backward_is_the_plain_backward(rng, fold):
+    """The tail's staged backward (``norm._Tail``, the forward here the plain
+    composition in place of the kernel) gives the plain composition's
+    gradients bit for bit, for a residual as is and a folded one."""
+    a, r = (torch.from_numpy(rng.standard_normal((2, 5, 4, 3, 16)).astype(np.float32) * 2 + 1)
+            .to(torch.bfloat16) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(torch.bfloat16)
+
+    def plain(a, r):
+        return act.leaky_relu(norm.reference_instance_norm(a)
+                              + (norm.reference_instance_norm(r) if fold else r))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (a, r)]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    got = grads(lambda a, r: norm._Tail.apply(plain, fold, 1e-5, 0.01, a, r))
+    for x, y in zip(got, grads(plain)):
+        assert torch.equal(x, y)
