@@ -828,9 +828,12 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
     import torch
 
     from hybrid_ctunet_tpu_torch.cli import bench
-    from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet
+    from hybrid_ctunet_tpu_torch.models import CTUNet, CUNet, SwinUNETR
     from hybrid_ctunet_tpu_torch.models import layers, vit3d
     from hybrid_ctunet_tpu_torch.ops import norm
+
+    if isinstance(model, SwinUNETR):
+        return swin_tree_launches(model, training, remat)
 
     def dropping(site):
         return training and site.rate > 0
@@ -967,8 +970,9 @@ def per_call_checks():
                 return out
 
             f.launches = getattr(kernel, "launches", 0)  # the wrappers count on their module name
-            if hasattr(kernel, "residual_launches"):
-                f.residual_launches = kernel.residual_launches
+            for counter in ("residual_launches", "launches_48", "windows", "masked_windows"):
+                if hasattr(kernel, counter):
+                    setattr(f, counter, getattr(kernel, counter))
             return f
 
         for (m, n, plain), (_, _, kernel) in zip(plains, saved):
@@ -1315,7 +1319,8 @@ def phase_train_grads(device):
     return worst
 
 
-PARAMS = {"ctunet": CTUNET_PARAMS, "tunet": 109_904_124, "cunet": 50_779_754}
+PARAMS = {"ctunet": CTUNET_PARAMS, "tunet": 109_904_124, "cunet": 50_779_754,
+          "swin_unetr": 62_187_296}
 
 
 def train_args(extra=(), model_name: str = "ctunet"):
@@ -2287,7 +2292,8 @@ def phase_measure(device):
             "mfu_reports": reports, "profiles": profiles, "nan_check": caught, "wall_s": wall}
 
 
-SINGLE_FILES = {"tunet": "model_vit.pt", "cunet": "model_res.pt"}  # trainer.py's names
+SINGLE_FILES = {"tunet": "model_vit.pt", "cunet": "model_res.pt",  # trainer.py's names
+                "swin_unetr": "model_vit.pt"}
 
 
 def phase_single_steps(device, model_name: str, steps_timed: int = 3):
@@ -2308,7 +2314,7 @@ def phase_single_steps(device, model_name: str, steps_timed: int = 3):
     return out
 
 
-def phase_single_cli(device, work, model_name: str):
+def phase_single_cli(device, work, model_name: str, extra=()):
     """10b. ``python -m hybrid_ctunet_tpu_torch.cli.train_main c_tunet
     --model_name <model_name>`` (main_C_TUNet.py's counterpart, run as the
     module with ``sys.argv`` set, so that its entry word picks the entry):
@@ -2329,7 +2335,7 @@ def phase_single_cli(device, work, model_name: str):
     argv = ["c_tunet", "--model_name", model_name, "--model_depths", "101", "--patch_frame", "8",
             "--synthetic", "--max_epochs", "2", "--val_every", "2", "--warmup_epochs", "1",
             "--save_checkpoint", "--data_dir", os.path.join(work, "train_data"),
-            "--logdir", logs]
+            "--logdir", logs, *extra]
     log(f"  python -m hybrid_ctunet_tpu_torch.cli.train_main {' '.join(argv)}")
     saved = sys.argv
     sys.argv = ["train_main", *argv]
@@ -2352,7 +2358,7 @@ def phase_single_cli(device, work, model_name: str):
     if code != 0 or missing:
         raise AssertionError(f"train_main c_tunet exited {code} and did not write "
                              f"{sorted(missing)}")
-    fresh = factory.build_model(train_args(model_name=model_name), device)
+    fresh = factory.build_model(train_args(extra, model_name=model_name), device)
     tree = tree_launches(fresh, training=True)
     want = {k for k, v in tree.items() if v} | {"scatter_add_windows"}
     if {k for k, v in counts.items() if v} != want:
@@ -2421,6 +2427,277 @@ def phase_single(device, work, ct_logs, common):
     return out
 
 
+def swin_tree_launches(model, training: bool = False, remat: bool = False):
+    """Kernel launches per 4-window chunk that a Swin-UNETR forward implies:
+    one window attention (K2) a transformer block; a transposed conv (K6)
+    where its gate takes the decoder's input (Cin 192 and up: decoder1 and
+    decoder2, at Cin 48 and 96, run K6's plain GEMM); every InstanceNorm
+    (K8), a tail's folded projection norm in the same record
+    (``ops.norm.folds``); the engine's scatter (K1). ``training`` with
+    ``remat``: each transformer block and ResBlock runs its forward again
+    in the backward, its K2 and K8 calls with it."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.models import layers, swin_unetr
+    from hybrid_ctunet_tpu_torch.ops import norm, shuffle
+
+    x = torch.empty(CHUNK, *bench.ROI, 1, device="meta")
+    _, tails = record_norm_sites(model, x)
+
+    def k8(mods):
+        inside = {id(m) for mod in mods for m in mod.modules()}
+        mine = [(shape, raw) for n, shape, raw in tails if id(n) in inside]
+        norms = sum(isinstance(m, layers.ConvNorm) and m.kind == "instance"
+                    for mod in mods for m in mod.modules())
+        return norms - sum(raw and norm.folds(shape) for shape, raw in mine), len(mine)
+
+    blocks = [m for m in model.modules() if isinstance(m, swin_unetr.SwinBlock)]
+    got = dict.fromkeys(("scatter_add_windows", "window_attention", "ffn", "ffn_pair",
+                         "pixel_shuffle_linear", "transp_conv_kxs", "pixelweight",
+                         "instance_norm", "conv3x3_winograd", "instance_norm.residual"), 0)
+    got["scatter_add_windows"] = 1
+    got["window_attention"] = len(blocks)
+    for k in range(1, 6):
+        w = getattr(model, f"decoder{k}").transp_conv.conv.weight
+        side = bench.ROI[0] // 2 ** k
+        got["transp_conv_kxs"] += shuffle.transp_supports(
+            (CHUNK, side, side, side, w.shape[0]), tuple(w.shape), model.dtype)
+    got["instance_norm"], got["instance_norm.residual"] = k8([model])
+    if training and remat:
+        got["window_attention"] += len(blocks)
+        again = k8([m for m in model.modules() if isinstance(m, layers.ResBlock)])
+        got["instance_norm"] += again[0]
+        got["instance_norm.residual"] += again[1]
+    return got
+
+
+# Swin-UNETR's window attentions, a 4-window chunk at 96^3: (stage, windows,
+# C, heads, window, padded grid)
+SWIN_ATTENTION = ((1, 4 * 343, 48, 3, 7, 49), (2, 4 * 64, 96, 6, 7, 28), (3, 4 * 8, 192, 12, 7, 14),
+                  (4, 4, 384, 24, 6, 6))
+SWIN_WINDOWS = (3328, 684)  # windows a chunk's forward runs, and of them masked
+
+
+def phase_swin(device, work):
+    """11. Swin-UNETR (MONAI's BTCV model, 62,187,296 params) at full width:
+    (a) K2's head-width-16 instance at each stage's shapes, unshifted and
+    shifted (stage 4's 6^3 windows indexed over 7^3), against its plain
+    version, bit for bit on a rerun, timed with the plain version, the
+    library's attention (``F.scaled_dot_product_attention`` over the
+    materialized bias and mask) and the bound, a chunk's total counting
+    stage 4's two blocks; today's instance re-timed at TUNet's pyramid
+    shapes; (b) K8 at
+    every InstanceNorm and tail site of a chunk (C = 48 * 2^k) against the
+    plain composition, each tail bit for bit the unfused K8 sequence, timed
+    with the plain version and the bound; today's widths re-timed at CTUNet
+    sites; (c) a chunk through the bf16 model with every kernel call held to
+    its plain version, the launch counters equal to the module tree's
+    (``swin_tree_launches``), K2's windows (3,328, 684 masked) and K8's
+    launches at the new widths, the traced records reconciled with the
+    counters, the kernel model against the plain model, the chunk's time
+    and peak memory; (d) a 256 x 256 x 128 volume through the engine at sw
+    4, timed; (e) train steps (1 x 4 crops, remat on and off) and
+    ``train_main c_tunet --model_name swin_unetr --feature_size 48``; (f)
+    ``test_single`` on the trained model's ``model_vit.pt``."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark import weights
+    from hybrid_ctunet_tpu_torch import kernels
+    from hybrid_ctunet_tpu_torch.cli import bench, test_main
+    from hybrid_ctunet_tpu_torch.models import SwinUNETR
+    from hybrid_ctunet_tpu_torch.models.layers import remat_blocks
+    from hybrid_ctunet_tpu_torch.ops import attention, norm
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    out = {}
+
+    def randn(*shape, dtype=torch.float32, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=device) + mean).to(dtype)
+
+    log("  (a) K2 at Swin-UNETR's shapes (ms a call)")
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for stage, n, C, heads, w, grid in SWIN_ATTENTION:
+        T = w ** 3
+        qkv = randn(n, T, 3 * C, dtype=bf)
+        q, k, v = qkv[..., :C] * 16 ** -0.5, qkv[..., C:2 * C], qkv[..., 2 * C:]
+        qh, kh, vh = (a.reshape(n, T, heads, 16).transpose(1, 2) for a in (q, k, v))
+        table = randn(13 ** 3, heads)
+        bias = attention.gather_bias(table, w, 7)
+        # stages 1-3 run one unshifted and one shifted block, stage 4 two unshifted
+        shifts, calls = ((0, 3), 1) if w == 7 else ((0,), 2)
+        for shift in shifts:
+            kw = dict(index_window=7, shift=((grid,) * 3, shift) if shift else None)
+            got = attention.window_attention(q, k, v, table, w, bf, **kw)
+            want = attention.reference_window_attention_table(q, k, v, table, w, bf, **kw)
+            err = check_bf16(f"window_attention stage {stage} shift {shift} ({n}x{w ** 3}x{C})",
+                             got, want)
+            if not torch.equal(got, attention.window_attention(q, k, v, table, w, bf, **kw)):
+                raise AssertionError(f"K2 stage {stage} shift {shift}: a rerun differs")
+            ms = cuda_time_ms(lambda: attention.window_attention(q, k, v, table, w, bf, **kw))
+            plain = cuda_time_ms(lambda: attention.reference_window_attention_table(
+                q, k, v, table, w, bf, **kw), reps=3, calls=2)
+            # the library's attention over the materialized bias (and mask)
+            if shift:
+                mask = attention.shift_mask((grid,) * 3, w, shift, device)
+                mask = (bias[None] + mask[:, None]).to(bf).repeat(n // mask.shape[0], 1, 1, 1)
+            else:
+                mask = bias.to(bf).contiguous()[None]
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                                      scale=1.0))
+            del mask
+            bound = n * heads * max(4 * T * T * 16 / BF16_FLOP_PER_S,
+                                    4 * T * 16 * 2 / HBM_BYTES_PER_S) * 1e3
+            log(f"  K2 stage {stage} shift {shift} x{calls}: {ms!r} ms, plain {plain!r} ms, sdpa "
+                f"{lib!r} ms, bound {bound!r} ms ({100 * bound / ms:.1f}%)")
+            rows.append({"stage": stage, "shift": shift, "calls": calls, "windows": n, "C": C,
+                         "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                         "max_abs_err": err})
+            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                             ("bound_ms", bound)):
+                total[key] += calls * val
+    log(f"  K2 a chunk (8 calls, stage 4's counted twice): {total!r}")
+    tunet = []
+    for stage, (nwin, C) in enumerate(((8, 768), (64, 512), (512, 256))):
+        qkv = randn(nwin, 216, 3 * C, dtype=bf)
+        q, k, v = qkv[..., :C] * 32 ** -0.5, qkv[..., C:2 * C], qkv[..., 2 * C:]
+        table = randn(11 ** 3, C // 32)
+        tunet.append(cuda_time_ms(lambda: attention.window_attention(q, k, v, table, 6, bf)))
+    log(f"  K2 head width 32 at TUNet's pyramid stages 0-2: {tunet!r} ms a call")
+    out["k2"] = {"rows": rows, "chunk": total, "tunet_stages_ms": tunet}
+    del qkv, q, k, v, qh, kh, vh, got, want
+
+    log("  (b) K8 at Swin-UNETR's InstanceNorm and tail sites (ms a chunk)")
+    meta_model = SwinUNETR(dtype=bf, device="meta")
+    x_meta = torch.empty(CHUNK, *bench.ROI, 1, device="meta")
+    sites, tails = record_norm_sites(meta_model, x_meta)
+    k8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    folded = collections.Counter((shape, raw) for _, shape, raw in tails)
+    for (shape, act), calls in sorted(sites.items()):
+        x = randn(*shape, dtype=bf, mean=0.5)
+        run = norm.instance_norm_leaky if act else norm.instance_norm
+
+        def plain(x=x, act=act):
+            y = norm.reference_instance_norm(x)
+            return F.leaky_relu(y, 0.01) if act else y
+
+        def library(x=x, act=act):
+            y = F.instance_norm(x.permute(0, 4, 1, 2, 3), eps=1e-5).permute(0, 2, 3, 4, 1)
+            return F.leaky_relu_(y, 0.01) if act else y
+
+        got = run(x)
+        check_bf16(f"K8 {shape} act {act}", got, plain())
+        if not torch.equal(got, run(x)):
+            raise AssertionError(f"K8 {shape}: a rerun differs")
+        ms, p_ms, l_ms = (cuda_time_ms(f) for f in (lambda: run(x), plain, library))
+        bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        regime = norm.plan(shape[0], math.prod(shape[1:4]), shape[-1])
+        log(f"  K8 {shape} act {act} x{calls} ({'on chip' if regime.onchip else 'two passes'}): "
+            f"{ms!r} ms, plain {p_ms!r}, library {l_ms!r}, bound {bound!r}")
+        for key, val in (("ms", ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                         ("bound_ms", bound)):
+            k8[key] += calls * val
+    tail_ms = 0.0
+    for (shape, raw), calls in sorted(folded.items()):
+        a, r = randn(*shape, dtype=bf, mean=0.5), randn(*shape, dtype=bf, mean=0.5 if raw else 0)
+        got = norm.instance_norm_add_leaky(a, r, raw)
+        res = norm.instance_norm(r) if raw else r
+        if not torch.equal(got, F.leaky_relu(norm.instance_norm(a) + res, 0.01)):
+            raise AssertionError(f"K8 tail {shape} raw {raw}: not the unfused sequence")
+        ms = cuda_time_ms(lambda: norm.instance_norm_add_leaky(a, r, raw))
+        log(f"  K8 tail {shape} raw {raw} x{calls} (fold {raw and norm.folds(shape)}): {ms!r} ms, "
+            "bit for bit the unfused K8 sequence")
+        tail_ms += calls * ms
+    today = []
+    for shape in ((4, 96, 96, 96, 64), (4, 48, 48, 96, 128), (4, 24, 24, 48, 256),
+                  (4, 12, 12, 24, 512), (4, 6, 6, 12, 1024)):
+        x = randn(*shape, dtype=bf, mean=0.5)
+        today.append(cuda_time_ms(lambda: norm.instance_norm_leaky(x)))
+    log(f"  K8 a chunk: {k8!r}; tails {tail_ms!r} ms; today's widths at CTUNet sites {today!r}")
+    out["k8"] = {**k8, "tails_ms": tail_ms, "today_ms": today}
+    del x, a, r, got
+
+    log("  (c) a chunk through the model, every kernel call held to its plain version")
+    model = SwinUNETR(dtype=bf, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PARAMS["swin_unetr"]:
+        raise AssertionError(f"Swin-UNETR has {n_params} params")
+    model.load_state_dict(weights.make([(k, tuple(p.shape)) for k, p in model.named_parameters()],
+                                       SEED, device))
+    model.eval()
+    tree = swin_tree_launches(model)
+    xs = randn(CHUNK, *bench.ROI, 1)
+    with torch.inference_mode(), remat_blocks(False):
+        with per_call_checks() as worst:
+            kernels.reset_launch_counts()
+            y = model(xs)[0]
+            counts, windows = counted_launches(), kernels.window_counts()
+            launches_48 = kernels.launches_48()
+        log(f"  worst kernel-vs-plain rel L2 by site: {max(worst.values())!r}")
+        check_launches("Swin-UNETR chunk", counts, [({**tree, "scatter_add_windows": 0}, 1)])
+        if windows != SWIN_WINDOWS or launches_48 != counts["instance_norm"]:
+            raise AssertionError(f"K2 windows {windows} (expected {SWIN_WINDOWS}), K8 at the "
+                                 f"new widths {launches_48} of {counts['instance_norm']}")
+        with kernels.gates_off():
+            yp = model(xs)[0]
+        rel = errors(y, yp)[1]
+        log(f"  kernels against the plain model: rel L2 {rel!r}")
+        prof = bench.profile_device(lambda: model(xs))  # raises unless the records reconcile
+        log(f"  traced records reconcile with the counters: {prof['kernel_records']}")
+        torch.cuda.reset_peak_memory_stats()
+        chunk_ms = cuda_time_ms(lambda: model(xs), reps=3, calls=5)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  a 4-window chunk: {chunk_ms!r} ms, peak {peak} B")
+        out["chunk"] = {"ms": chunk_ms, "peak_bytes": peak, "rel_l2_vs_plain": rel,
+                        "windows": windows, "launches": counts, "launches_48": launches_48}
+
+        log("  (d) a 256 x 256 x 128 volume through the engine, sw 4")
+        engine = bench.make_engine(model, bench.ROI, 0.5, CHUNK)
+        volume = bench.make_volume(SEED, device=device)
+        kernels.reset_launch_counts()
+        stats = bench.time_volumes(engine, volume, reps=3)
+        vol_counts = counted_launches()
+        _, chunks = n_chunks(engine)
+        check_launches("Swin-UNETR volume (4 with the warm-up)", vol_counts, [(tree, chunks * 4)])
+        log(f"  volume: {stats!r}")
+        out["volume"] = {k: stats[k] for k in stats if k != "logits"}
+    del model, engine, volume, y, yp, xs
+    torch.cuda.empty_cache()
+
+    log("  (e) train steps and train_main c_tunet --model_name swin_unetr")
+    extra = ("--feature_size", "48")
+    model, step, lr, trees, batches = build_train(device, extra, steps=6,
+                                                  model_name="swin_unetr")
+    steps_out, _ = run_steps(step, lr, trees, batches, device, 2)
+    out["train_steps"] = step_stats(steps_out)
+    del model, step
+    torch.cuda.empty_cache()
+    cli = phase_single_cli(device, work, "swin_unetr", extra)
+    out["train_cli"] = {k: v for k, v in cli.items() if k != "logs"}
+
+    log("  (f) test_single --model_name swin_unetr on the trained model_vit.pt")
+    data = os.path.join(work, "train_data")
+    argv = ["--model_name", "swin_unetr", "--feature_size", "48", "--data_dir", data,
+            "--json_list", "dataset_synth.json", "--pretrained_dir", cli["logs"],
+            "--pretrained_model_name", SINGLE_FILES["swin_unetr"], "--exp_name", "single_swin"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rows = test_main.test_single(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    if rows is None or not all(math.isfinite(float(v)) for v in rows.ravel()):
+        raise AssertionError(f"test_single: {rows}")
+    log(f"  test_single: {wall!r} s, mean Dice {float(rows.mean())!r}")
+    out["test_single"] = {"wall_s": wall, "mean_dice": float(rows.mean())}
+    return out
+
+
 def step_stats(run):
     """A train phase's numbers for the summary line: with remat, and under
     ``no_remat`` and ``remat_check`` where the phase has them."""
@@ -2460,7 +2737,7 @@ def main() -> int:
     log("phase 3: kernels against their plain versions (ms per 4-window chunk)")
     results = phase_kernels(device)
 
-    work_dir = tempfile.TemporaryDirectory()  # checkpoints and data of phases 4-7
+    work_dir = tempfile.TemporaryDirectory()  # checkpoints and data of phases 4-11
     work = work_dir.name
 
     log("phase 4: TUNet sliding-window slice")
@@ -2500,6 +2777,9 @@ def main() -> int:
     log("phase 10: main_C_TUNet.py's workflow (TUNet and CUNet training, test_single, "
         "test_final on the trained TUNet)")
     single = phase_single(device, work, cli["logs"], ev.pop("common"))
+
+    log("phase 11: Swin-UNETR")
+    swin = phase_swin(device, work)
     work_dir.cleanup()
 
     entries = []
@@ -2546,6 +2826,7 @@ def main() -> int:
         "single": {k: (step_stats(v) if k.endswith("_steps") else
                        {kk: vv for kk, vv in v.items() if kk != "launches"}
                        if isinstance(v, dict) else v) for k, v in single.items()},
+        "swin": swin,
         "wall_s": time.perf_counter() - start,
     }))
     log(card)

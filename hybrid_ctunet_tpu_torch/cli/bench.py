@@ -194,16 +194,30 @@ def profile_half(engine: SlidingWindowEngine, volume: torch.Tensor) -> Dict:
     return profile_device(lambda: segment(engine, volume))
 
 
+# Device work at the head of a trace, before the traced call. Once a process
+# has run for some minutes, the profiler loses the first device records after
+# a trace starts (on an H100 with torch 2.11 and CUDA 12.8, in a process that
+# ran Swin-UNETR chunks in a loop: none at 290 s, 23 at 306 s, one more every
+# ~15 s after; torch's kernels as well as the port's; an idle 50 ms before the
+# call did not help). These spin kernels (~0.1 ms each) take the loss.
+_LEAD_IN_KERNELS = 512
+_LEAD_IN_CYCLES = 200_000
+
+
 def profile_device(fn) -> Dict:
-    """``fn()`` once to warm up, then once under ``utils.profiling.trace``:
-    wall seconds, summed device kernel time, the 30 kernels with the most
-    device time, and the traced records of each of the port's kernels,
-    which must equal its launches in the traced call
-    (``kernels.reconcile`` raises otherwise: no partial table)."""
+    """``fn()`` once to warm up, then once under ``utils.profiling.trace``
+    after the lead-in kernels: wall seconds, summed device kernel time, the
+    30 kernels with the most device time, and the traced records of each of
+    the port's kernels, which must equal its launches in the traced call
+    (``kernels.reconcile`` raises otherwise: no partial table). The lead-in
+    is left out of every number."""
     fn()
     torch.cuda.synchronize()
     before = kernels.launch_counts()
     with trace() as prof:
+        for _ in range(_LEAD_IN_KERNELS):
+            torch.cuda._sleep(_LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -216,7 +230,7 @@ def profile_device(fn) -> Dict:
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and _on_device(ev):
+        if dev_us > 0 and _on_device(ev) and "spin_kernel" not in ev.key:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     kernel_ms = sum(r[1] for r in rows)

@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from ..models import CTUNet, CUNet, TUNet
+from ..models import CTUNet, CUNet, SwinUNETR, TUNet
 from ..models.layers import convert_sync_batchnorm
 from ..train.checkpoint import load_weights
 from ..train.state import make_optimizer
@@ -64,7 +64,9 @@ def model_dtype(args):
 def build_model(args, device) -> torch.nn.Module:
     """The model of ``args.model_name`` on ``device``, random weights from
     SEED, with ``--dropout_rate`` (the ViT-side sites; CUNet has none, as
-    in the JAX package) and ``--norm_name``; under ``--distributed`` with a
+    in the JAX package; Swin-UNETR has none either) and ``--norm_name``;
+    ``swin_unetr`` is Swin-UNETR at ``--feature_size`` (48 for the BTCV
+    model) over the ROI; under ``--distributed`` with a
     world of more than one process BatchNorm's moments are synced over it
     (SyncBatchNorm, reference main_C_TUNet.py:193-194; the JAX
     ``"batch:data"``)."""
@@ -82,8 +84,11 @@ def build_model(args, device) -> torch.nn.Module:
         model = TUNet(**vit_kw, **common)
     elif name == "ctunet":
         model = CTUNet(model_depth=args.model_depths, **vit_kw, **common)
+    elif name == "swin_unetr":
+        model = SwinUNETR(img_size=(args.roi_x, args.roi_y, args.roi_z),
+                          feature_size=args.feature_size, **common)
     else:
-        raise ValueError(f"Unsupported model_name: {name!r} (cunet | tunet | ctunet)")
+        raise ValueError(f"Unsupported model_name: {name!r} (cunet | tunet | ctunet | swin_unetr)")
     if args.distributed and args.world_size > 1:
         convert_sync_batchnorm(model)
     return random_init_(model, SEED)

@@ -7,6 +7,8 @@ test_CTUNet_final.py). Port of ``hybrid_ctunet_tpu/cli/test_main.py``.
     python -m hybrid_ctunet_tpu_torch.cli.test_main ctunet --pretrained_dir DIR ...
     python -m hybrid_ctunet_tpu_torch.cli.test_main single --model_name tunet \\
         --pretrained_dir DIR --pretrained_model_name model_vit.pt ...
+    python -m hybrid_ctunet_tpu_torch.cli.test_main single --model_name swin_unetr \\
+        --feature_size 48 --pretrained_dir DIR --pretrained_model_name model_vit.pt ...
 
 All three share the loop: sliding-window infer each validation case ->
 invert the blended logits to the native grid -> softmax/argmax (ensembling
@@ -129,8 +131,8 @@ def _engine(predictor, args, overlap=None, num_outputs=1):
 
 
 def _single_engine(args, overlap=None):
-    """The first head of CUNet / TUNet; the model is the predictor's
-    argument."""
+    """The first head of CUNet / TUNet, Swin-UNETR's one; the model is the
+    predictor's argument."""
     def predictor(x, model):
         return model(_windows(x, model))[0]
 
@@ -188,7 +190,7 @@ def _only_main(finish):
 
 
 def test_single(argv=None):
-    """test_C_TUNet.py: evaluate one CUNet or TUNet checkpoint."""
+    """test_C_TUNet.py: evaluate one CUNet, TUNet or Swin-UNETR checkpoint."""
     return _run(_test_single, build_test_parser("c_tunet").parse_args(argv))
 
 

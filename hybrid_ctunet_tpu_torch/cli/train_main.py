@@ -7,11 +7,14 @@ main_CTUNet.py:97-227). Port of ``hybrid_ctunet_tpu/cli/train_main.py``.
         [--dropout_rate 0.2] [--norm_name batch] [--distributed]
     python -m hybrid_ctunet_tpu_torch.cli.train_main c_tunet \\
         --model_name tunet|cunet [the same flags]
+    python -m hybrid_ctunet_tpu_torch.cli.train_main c_tunet \\
+        --model_name swin_unetr --feature_size 48 [the same flags]
 
 Run as a module, its first word picks the entry (``run``): ``ctunet``, or
 no word, is main_CTUNet.py's, ``main("ctunet")`` (the model is CTUNet
 whatever ``--model_name`` says, as there); ``c_tunet`` is main_C_TUNet.py's,
-``main("c_tunet")``, which takes ``--model_name cunet | tunet | ctunet``. It
+``main("c_tunet")``, which takes ``--model_name cunet | tunet | ctunet |
+swin_unetr`` (Swin-UNETR, MONAI's BTCV model at ``--feature_size 48``). It
 runs on the card unless ``--device cpu`` is given. Logs and checkpoints go to
 ``./runs/<logdir>`` (an absolute ``--logdir`` is used as it is).
 

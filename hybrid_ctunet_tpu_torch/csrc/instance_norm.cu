@@ -32,6 +32,10 @@
 //   combine, folded in), then walks the rows of statistics block (sp, b)
 //   from the last, so that it first finds in L2 what that block read last.
 //   x is read twice: a floor of 1.5x the bound, less what L2 keeps.
+//   A thread takes 8 channels, so a block's threads are a multiple of C / 8:
+//   256 where C / 8 divides it (C 8..2048 in powers of two), else 192 (C =
+//   48 * 2^k, Swin-UNETR's widths 48..768; C / 8 = 6 * 2^k). The on-chip
+//   slab is 64 channels whatever C, so that form needs only 64 | C.
 //
 // The residual tail of a ResBlock or Bottleneck, leaky_relu(norm(a) + r),
 // is the same kernels with a second operand in the store (template MODE):
@@ -51,6 +55,7 @@ namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;
+constexpr int THREADS_48 = 192;  // the two passes' block where C / 8 = 6 * 2^k
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_SLAB = 110592;  // bytes of x a CTA holds on chip (ops/norm.py SLAB_BYTES)
@@ -239,11 +244,12 @@ __global__ void __launch_bounds__(THREADS)
 // [sp * chunk, (sp + 1) * chunk) of sample b of x0 (t 0) or x1 (t 1, a
 // folded tail's raw residual), chunk = ceil(S / splits); tensor t's
 // partials follow tensor 0's.
-__global__ void __launch_bounds__(THREADS)
+template <int NTHR>
+__global__ void __launch_bounds__(NTHR)
     in_stats_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
                     float* __restrict__ part, long long S, int C, int splits) {
-  __shared__ float red[2][THREADS * 8];
-  const int CV = C / 8, RPI = THREADS / CV;
+  __shared__ float red[2][NTHR * 8];
+  const int CV = C / 8, RPI = NTHR / CV;
   const int cv = threadIdx.x % CV, rr = threadIdx.x / CV;
   const int sp = blockIdx.x, b = blockIdx.y;
   const bf16* x = blockIdx.z ? x1 : x0;
@@ -273,7 +279,7 @@ __global__ void __launch_bounds__(THREADS)
   // thread (rr, cv) wrote channels cv*8.. at red[.][(rr*CV + cv)*8 + e], i.e.
   // red[.][rr*C + c]: sum over rr in order
   float* out = part + (((long long)blockIdx.z * gridDim.y + b) * splits + sp) * 2 * C;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
+  for (int c = threadIdx.x; c < C; c += NTHR) {
     float a1 = 0.f, a2 = 0.f;
     for (int q = 0; q < RPI; ++q) {
       a1 += red[0][q * C + c];
@@ -285,46 +291,46 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // Large: normalize, grid (splits, B), the statistics pass's blocks. The
-// sample's 2C sums come first: P = 256 / 2C threads (at least 1) per sum,
+// sample's 2C sums come first: P = NTHR / 2C threads (at least 1) per sum,
 // thread p adding splits p, p + P, ... in order, then the P results in order
 // (FOLD: a's sums, then r's, each so). ADD adds r as stored, FOLD r
 // normalized by its own statistics; both end in the LeakyReLU.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+template <int MODE, int NTHR>
+__global__ void __launch_bounds__(NTHR)
     in_normalize_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                         bf16* __restrict__ y, const float* __restrict__ part, long long S, int C,
                         int splits, float eps, int act, float slope) {
   constexpr int NT = MODE == FOLD ? 2 : 1;  // tensors normalized
   constexpr int SC = MODE == FOLD ? FOLD_MAX_C : MAX_C;
   __shared__ float sums[NT * 2 * SC];
-  __shared__ float scratch[2 * SC > THREADS ? 2 * SC : THREADS];
+  __shared__ float scratch[2 * SC > NTHR ? 2 * SC : NTHR];
   const int sp = blockIdx.x, b = blockIdx.y;
-  const int V = 2 * C, P = V < THREADS ? THREADS / V : 1;
+  const int V = 2 * C, P = V < NTHR ? NTHR / V : 1;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const float* pb = part + ((long long)t * gridDim.y + b) * splits * V;
-    for (int i = threadIdx.x; i < V * P; i += THREADS) {
+    for (int i = threadIdx.x; i < V * P; i += NTHR) {
       const int v = i % V, p = i / V;
       float a = 0.f;
       for (int q = p; q < splits; q += P) a += pb[(long long)q * V + v];
       scratch[i] = a;
     }
     __syncthreads();
-    for (int v = threadIdx.x; v < V; v += THREADS) {
+    for (int v = threadIdx.x; v < V; v += NTHR) {
       float a = 0.f;
       for (int p = 0; p < P; ++p) a += scratch[p * V + v];
       sums[t * V + v] = a;
     }
     __syncthreads();
   }
-  for (int c = threadIdx.x; c < NT * C; c += THREADS) {
+  for (int c = threadIdx.x; c < NT * C; c += NTHR) {
     float* st = sums + (c / C) * V + c % C;
     const float s1 = st[0], s2 = st[C];
     stats_of(s1, s2, S, eps, &st[0], &st[C]);
   }
   __syncthreads();
 
-  const int CV = C / 8, RPI = THREADS / CV;
+  const int CV = C / 8, RPI = NTHR / CV;
   const int cv = threadIdx.x % CV, rr = threadIdx.x / CV;
   float mean[NT][8], rstd[NT][8];
 #pragma unroll
@@ -394,10 +400,31 @@ static cudaError_t launch_onchip(const bf16* x, const bf16* r, bf16* y, int B, l
   return cudaLaunchKernelEx(&cfg, in_onchip_kernel<MODE>, x, r, y, S, C, rows, eps, act, slope);
 }
 
+// the two passes' block: 256 threads where C / 8 divides 256, else 192 where
+// it divides 192, else 0 (no form of the two passes takes C)
+static int pass_threads(int C) {
+  if (C < 8 || C % 8) return 0;
+  return THREADS % (C / 8) == 0 ? THREADS : THREADS_48 % (C / 8) == 0 ? THREADS_48 : 0;
+}
+
+template <int MODE, int NTHR>
+static cudaError_t two_passes(const bf16* x, const bf16* r, bf16* y, float* part, int B,
+                              long long S, int C, int splits, float eps, int act, float slope,
+                              cudaStream_t s) {
+  in_stats_kernel<NTHR><<<dim3(splits, B, MODE == FOLD ? 2 : 1), NTHR, 0, s>>>(x, r, part, S, C,
+                                                                              splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_normalize_kernel<MODE, NTHR><<<dim3(splits, B), NTHR, 0, s>>>(x, r, y, part, S, C, splits,
+                                                                  eps, act, slope);
+  return cudaGetLastError();
+}
+
 template <int MODE>
 static int run(const void* x, const void* r, void* y, void* work, int B, long long S, int C,
                int cluster, int rows, int splits, float eps, int act, float slope, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 || THREADS % (C / 8))
+  if (B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 ||
+      (cluster > 0 ? C % CG != 0 : pass_threads(C) == 0))
     return (int)cudaErrorInvalidValue;
   if (((size_t)x | (size_t)r | (size_t)y) % 16) return (int)cudaErrorMisalignedAddress;
   if (MODE != PLAIN && r == nullptr) return (int)cudaErrorInvalidValue;
@@ -417,17 +444,14 @@ static int run(const void* x, const void* r, void* y, void* work, int B, long lo
   if (splits < 1 || splits > 65535 || work == nullptr || (MODE == FOLD && C > FOLD_MAX_C))
     return (int)cudaErrorInvalidValue;
   float* part = (float*)work;
-  in_stats_kernel<<<dim3(splits, B, MODE == FOLD ? 2 : 1), THREADS, 0, s>>>(xb, rb, part, S, C,
-                                                                           splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  in_normalize_kernel<MODE><<<dim3(splits, B), THREADS, 0, s>>>(xb, rb, yb, part, S, C, splits,
-                                                                eps, act, slope);
-  return (int)cudaGetLastError();
+  return (int)(pass_threads(C) == THREADS
+                   ? two_passes<MODE, THREADS>(xb, rb, yb, part, B, S, C, splits, eps, act, slope, s)
+                   : two_passes<MODE, THREADS_48>(xb, rb, yb, part, B, S, C, splits, eps, act,
+                                                  slope, s));
 }
 
-// x, y: (B, S, C) bf16, 16-byte aligned, C % 8 == 0 and (C / 8) dividing 256.
-// On chip when cluster > 0: `cluster` CTAs of `rows` rows each per 64-channel
+// x, y: (B, S, C) bf16, 16-byte aligned, C % 8 == 0 and (C / 8) dividing 256
+// or 192 (the two passes), C % 64 == 0 (on chip). On chip when cluster > 0: `cluster` CTAs of `rows` rows each per 64-channel
 // group and sample; `work` unused. Else the two passes with `splits` blocks a
 // sample; work holds B * splits * 2 * C floats.
 extern "C" int instance_norm(const void* x, void* y, void* work, int B, long long S, int C,

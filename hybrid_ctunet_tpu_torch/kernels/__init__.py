@@ -100,13 +100,15 @@ def wrapper(info: KernelInfo):
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's launch counter, K8's tail counter and the
-    recompute counter."""
+    """Zero every wrapper's launch counter, K8's tail and width counters,
+    K2's window counters and the recompute counter."""
     from ..ops.recompute import checkpoint
 
     for info in KERNELS:
         wrapper(info).launches = 0
     _k8().residual_launches = 0
+    _k8().launches_48 = 0
+    _k2().windows = _k2().masked_windows = 0
     checkpoint.recomputes = 0
 
 
@@ -116,6 +118,24 @@ def launch_counts() -> Dict[str, int]:
 
 def _k8():
     return wrapper(next(info for info in KERNELS if info.name == "instance_norm"))
+
+
+def _k2():
+    return wrapper(next(info for info in KERNELS if info.name == "window_attention"))
+
+
+def window_counts() -> Tuple[int, int]:
+    """(windows, masked windows) K2 ran since the last reset: each launch's
+    windows (each for every head), and of them those of shifted blocks that
+    took the region mask."""
+    return _k2().windows, _k2().masked_windows
+
+
+def launches_48() -> int:
+    """K8 launches since the last reset at C = 48 * 2^k (its 192-thread
+    two-pass form, or on chip at 192-768), each also counted on
+    ``instance_norm``."""
+    return _k8().launches_48
 
 
 def residual_launches() -> int:

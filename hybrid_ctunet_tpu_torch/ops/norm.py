@@ -29,6 +29,7 @@ from .act import leaky_relu
 from .recompute import recompute, recomputing
 
 _THREADS = 256  # csrc/instance_norm.cu: threads per block
+_THREADS_48 = 192  # csrc/instance_norm.cu THREADS_48: the two passes' block at C = 48 * 2^k
 _SMS = 132  # H100 SXM streaming multiprocessors
 SLAB_BYTES = 110_592  # csrc/instance_norm.cu MAX_SLAB: x a CTA holds on chip (two an SM)
 GROUP = 64  # csrc/instance_norm.cu CG: channels of an on-chip slab
@@ -51,12 +52,21 @@ def reference_instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def pass_threads(channels: int) -> int:
+    """The two passes' block at ``channels``: 256 threads where C/8 divides
+    256 (C 8..2048 in powers of two; every conv width of the Hybrid-CTUNet
+    models, 32-1024), else 192 where C/8 divides 192 (C = 48 * 2^k:
+    Swin-UNETR's 48-768), else 0."""
+    if channels < 8 or channels % 8:
+        return 0
+    cv = channels // 8
+    return _THREADS if _THREADS % cv == 0 else _THREADS_48 if _THREADS_48 % cv == 0 else 0
+
+
 def supports(x: torch.Tensor) -> bool:
-    """Where the kernel engages: bf16 NDHWC with C/8 dividing the block's
-    256 threads (C 8..2048 in powers of two; every conv width of the three
-    models, 32-1024)."""
-    c = x.shape[-1]
-    return x.dtype == torch.bfloat16 and x.ndim == 5 and c % 8 == 0 and _THREADS % (c // 8) == 0
+    """Where the kernel engages: bf16 NDHWC whose C a block of the two
+    passes takes (:func:`pass_threads`)."""
+    return x.dtype == torch.bfloat16 and x.ndim == 5 and pass_threads(x.shape[-1]) > 0
 
 
 class Plan(NamedTuple):
@@ -87,7 +97,7 @@ def plan(batch: int, spatial: int, channels: int) -> Plan:
         want = -(-2 * _SMS // (batch * (channels // GROUP)))
         k = max(need, min(MAX_CLUSTER, want, -(-spatial // 32)))
         return Plan(True, cluster=k, rows=-(-spatial // k))
-    rows_per_iter = _THREADS // (channels // 8)
+    rows_per_iter = pass_threads(channels) // (channels // 8)
     by_work = max(1, spatial // (4 * rows_per_iter))
     return Plan(False, splits=max(1, min(by_work, -(-2 * _SMS // batch))))
 
@@ -169,8 +179,14 @@ def _launch(x: torch.Tensor, eps: float, negative_slope) -> torch.Tensor:
     x = x.contiguous()
     fn, args, out, _ = norm_call(x, eps, negative_slope)
     kernels.check(fn(*args), "instance_norm")
-    instance_norm.launches += 1
+    _count(x.shape[-1])
     return out
+
+
+def _count(channels: int) -> None:
+    instance_norm.launches += 1
+    if pass_threads(channels) == _THREADS_48:
+        instance_norm.launches_48 += 1
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -184,6 +200,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 instance_norm.launches = 0
 instance_norm.residual_launches = 0  # fused tails (instance_norm_add_leaky)
+instance_norm.launches_48 = 0  # of the launches, those at C = 48 * 2^k (Swin-UNETR's widths)
 
 
 def instance_norm_leaky(
@@ -273,7 +290,7 @@ def instance_norm_add_leaky(a: torch.Tensor, r: torch.Tensor, r_raw: bool = Fals
     def run(a, r):
         fn, args, out, _ = tail_call(a, r, fold, eps, negative_slope)
         kernels.check(fn(*args), "instance_norm_tail")
-        instance_norm.launches += 1
+        _count(a.shape[-1])
         instance_norm.residual_launches += 1
         return out
 

@@ -8,7 +8,8 @@ Channels-last batches: image (B, X, Y, Z, 1), label (B, X, Y, Z, 1).
   y_half the nearest zoom (.5, .5, 1) of y, y_quarter (.25, .25, .5), on the
   device;
 - TUNet  (trainer_TUNet.py:78-82): L = DiceCE(v0, y) + DiceCE(v1, y);
-- CTUNet (trainer_CTUNet.py:90-103): L = L_cunet + 0.5 L_tunet.
+- CTUNet (trainer_CTUNet.py:90-103): L = L_cunet + 0.5 L_tunet;
+- Swin-UNETR: L = DiceCE(logits, y) on its one output.
 
 A step is forward, loss, backward and one optimizer update at the epoch's
 LR. ``grad_accum`` splits the batch into microbatches whose gradients add up
@@ -77,7 +78,13 @@ def ctunet_loss_fn(outs, label, **kw):
     return loss1 + 0.5 * loss2, {"loss1": loss1, "loss2": loss2}
 
 
-LOSS_FNS = {"cunet": cunet_loss_fn, "tunet": tunet_loss_fn, "ctunet": ctunet_loss_fn}
+def single_loss_fn(outs, label, *, smooth_nr=0.0, smooth_dr=1e-6):
+    (logits,) = outs
+    return dice_ce_loss(logits, label, smooth_nr=smooth_nr, smooth_dr=smooth_dr), {}
+
+
+LOSS_FNS = {"cunet": cunet_loss_fn, "tunet": tunet_loss_fn, "ctunet": ctunet_loss_fn,
+            "swin_unetr": single_loss_fn}
 
 
 DROPOUT_SEED = 0  # the JAX steps' default dropout_seed

@@ -212,6 +212,7 @@ def run_training(model: torch.nn.Module, optimizer: torch.optim.Optimizer, step_
                     writer.add_scalar(f"val_acc_{key}", acc, epoch)
             else:
                 # model_res.pt for cunet, model_vit.pt for tunet (trainer_CUNet.py:216-219)
+                # and swin_unetr
                 fname = "model_res.pt" if cfg.model_name == "cunet" else "model_vit.pt"
                 named = [("acc", accs[0], fname)]
                 writer.add_scalar("val_acc", accs[0], epoch)

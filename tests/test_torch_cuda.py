@@ -137,6 +137,74 @@ def test_window_attention_table_gradient(dev):
     assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 1e-6
 
 
+# Swin-UNETR's attention at a 96^3 ROI, a 4-window chunk: (windows, C, heads,
+# window, padded grid, shift); stages 1-3 shifted and not, stage 4 at 6^3
+_SWIN_ATTENTION = [(4 * 343, 48, 3, 7, (49, 49, 49), 3), (4 * 343, 48, 3, 7, (49, 49, 49), 0),
+                   (4 * 64, 96, 6, 7, (28, 28, 28), 3), (4 * 8, 192, 12, 7, (14, 14, 14), 3),
+                   (4 * 8, 192, 12, 7, (14, 14, 14), 0), (4, 384, 24, 6, (6, 6, 6), 0),
+                   (2 * 27, 48, 3, 7, (21, 21, 21), 3)]
+
+
+def _swin_inputs(gen, n, c, heads, window, dev):
+    qkv = _randn(gen, n, window ** 3, 3 * c, dtype=BF, dev=dev)
+    q, k, v = qkv[..., :c] * 16 ** -0.5, qkv[..., c:2 * c], qkv[..., 2 * c:]
+    return q, k, v, _randn(gen, 13 ** 3, heads, dev=dev)
+
+
+@pytest.mark.parametrize("n,c,heads,window,grid,shift", _SWIN_ATTENTION)
+def test_window_attention_head_width_16(dev, n, c, heads, window, grid, shift):
+    """K2's head-width-16 instance at Swin-UNETR's shapes: 7^3 windows,
+    shifted (the region mask computed in the kernel) and not, and 6^3
+    windows indexed over a 7^3 layout, against the plain version (bias
+    gathered, mask materialized); the gradients through the plain version;
+    the window counters."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, table = _swin_inputs(gen, n, c, heads, window, dev)
+    kw = dict(index_window=7, shift=(grid, shift) if shift else None)
+    assert attention.supports(window ** 3, c, heads, BF, 7)
+    windows, masked = attention.window_attention.windows, attention.window_attention.masked_windows
+    got = attention.window_attention(q, k, v, table, window, BF, **kw)
+    want = attention.reference_window_attention_table(q, k, v, table, window, BF, **kw)
+    _bf16_close(got, want)
+    assert torch.equal(got, attention.window_attention(q, k, v, table, window, BF, **kw))
+    assert attention.window_attention.windows == windows + 2 * n
+    nx = grid[0] // window
+    edge = n // nx ** 3 * (nx ** 3 - (nx - 1) ** 3) if shift else 0
+    assert attention.window_attention.masked_windows == masked + 2 * edge
+    proj = torch.randn(got.shape, generator=gen, device=dev)
+    grads = []
+    for fn in (attention.window_attention, attention.reference_window_attention_table):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+        (fn(*leaves, window, BF, **kw).float() * proj).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert ((g - w).norm() / w.norm()).item() <= 1e-6
+
+
+def test_window_attention_mask_matters(dev):
+    """A shifted block's masked windows differ from the same windows
+    unmasked, and its interior windows do not."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, k, v, table = _swin_inputs(gen, 27, 48, 3, 7, dev)
+    masked = attention.window_attention(q, k, v, table, 7, BF, index_window=7,
+                                        shift=((21, 21, 21), 3))
+    plain = attention.window_attention(q, k, v, table, 7, BF, index_window=7)
+    same = (masked == plain).flatten(1).all(1)
+    # windows (x, y, z) of a 3 x 3 x 3 grid: interior where no coordinate is the last
+    assert same.tolist() == [max(i // 9, i // 3 % 3, i % 3) < 2 for i in range(27)]
+
+
+def test_window_attention_head_width_32_unchanged(dev):
+    """Today's instance is taken only as it was: head width 32 over w^3 <= 216
+    indexed as themselves; the width-16 instance only at Swin's 7^3 and
+    6^3 windows over a 7^3 index."""
+    assert attention.supports(216, 256, 8, BF) and not attention.supports(216, 256, 8, BF, 7)
+    assert not attention.supports(343, 224, 7, BF)
+    assert not attention.supports(216, 48, 3, BF) and attention.supports(216, 48, 3, BF, 7)
+    assert not attention.supports(64, 48, 3, BF, 7) and not attention.supports(343, 48, 3,
+                                                                                torch.float32, 7)
+
+
 def _ffn_params(gen, c, h, dev):
     return (1 + _randn(gen, c, std=0.1, dev=dev), _randn(gen, c, std=0.1, dev=dev),
             _randn(gen, h, c, std=c ** -0.5, dev=dev), _randn(gen, h, std=0.1, dev=dev),
@@ -398,6 +466,41 @@ def test_instance_norm_tail_bit_identical(dev, shape, r_raw):
                                                     0.01))
 
 
+# every InstanceNorm and tail width of Swin-UNETR (C = 48 * 2^k) at its sites'
+# sizes and at edges of each regime
+_SWIN_NORM = [(4, 96, 96, 96, 48), (4, 48, 48, 48, 48), (4, 24, 24, 24, 96), (4, 12, 12, 12, 192),
+              (4, 6, 6, 6, 384), (4, 3, 3, 3, 768), (1, 23, 17, 29, 48), (2, 5, 7, 9, 96),
+              (1, 40, 40, 37, 192), (1, 1, 1, 6913, 384), (2, 3, 5, 7, 768)]
+
+
+@pytest.mark.parametrize("shape", _SWIN_NORM)
+def test_instance_norm_swin_widths(dev, shape):
+    """K8 at C = 48 * 2^k in every form (norm, norm + LeakyReLU, the tail
+    with the residual as is and raw, folded where ``norm.folds``): against
+    the plain composition, the tail bit for bit against the unfused K8
+    sequence, reruns bit for bit, counted on ``launches_48``."""
+    B, S, C = shape[0], shape[1] * shape[2] * shape[3], shape[-1]
+    assert norm.pass_threads(C) == 192 and norm.supports(torch.zeros(1, 1, 1, 1, C, dtype=BF))
+    gen = torch.Generator(device=dev).manual_seed(33)
+    a = (0.5 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    r = (0.5 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(BF)
+    before = norm.instance_norm.launches_48
+    y = norm.instance_norm(a)
+    _bf16_close(y, norm.reference_instance_norm(a))
+    assert torch.equal(y, norm.instance_norm(a))
+    yl = norm.instance_norm_leaky(a)
+    _bf16_close(yl, torch.nn.functional.leaky_relu(norm.reference_instance_norm(a), 0.01))
+    assert norm.instance_norm.launches_48 == before + 3
+    for r_raw in (False, True):
+        got = norm.instance_norm_add_leaky(a, r, r_raw)
+        res = norm.instance_norm(r) if r_raw else r
+        assert torch.equal(got, torch.nn.functional.leaky_relu(y + res, 0.01))
+        assert torch.equal(got, norm.instance_norm_add_leaky(a, r, r_raw))
+        plain = norm.reference_instance_norm(r) if r_raw else r
+        _bf16_close(got, torch.nn.functional.leaky_relu(norm.reference_instance_norm(a) + plain,
+                                                        0.01))
+
+
 def test_instance_norm_tail_folds_at_the_projection_sites(dev):
     """The two-pass projection sites fold; the on-chip ones do not."""
     assert [norm.folds(s) for s in _TAIL_SITES] == [True, True, True, False, False]
@@ -409,7 +512,8 @@ def test_wrappers_raise_on_unsupported(dev):
     with pytest.raises(ValueError):
         ffn.ffn(x, *p, BF)  # C = 64 has no kernel instance
     with pytest.raises(ValueError):
-        norm.instance_norm(torch.zeros(1, 2, 2, 2, 24, device=dev, dtype=BF))  # 3 vectors a row
+        # 5 vectors a row: divides neither block (256 or 192 threads)
+        norm.instance_norm(torch.zeros(1, 2, 2, 2, 40, device=dev, dtype=BF))
     with pytest.raises(ValueError):  # a residual of another shape
         norm.instance_norm_add_leaky(torch.zeros(1, 2, 2, 2, 64, device=dev, dtype=BF),
                                      torch.zeros(1, 2, 2, 1, 64, device=dev, dtype=BF))
