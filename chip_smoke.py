@@ -252,18 +252,31 @@ def erff_fp32_flops() -> int:
     return sum(2 if op == "FFMA" else 1 for op in ops)
 
 
-def record_norm_sites(model, x, **kw):
-    """The conv-path InstanceNorm sites of one forward of ``model`` on
-    ``x``: (shape, act) -> calls, and the residual tails of instance kind
-    (``ConvNorm.tail``) as (norm module, shape, raw residual), in call
-    order. Meta tensors: shapes only, nothing computed; the parameters and
-    buffers are swapped for meta twins (``torch.func.functional_call``), so
-    a model on the card serves too. Eval mode and no gradient, so no block
-    is rematerialized, no dropout drawn and each site counts once. On the
-    meta device every tail takes its plain composition, so its norms are
-    among the (shape, act) calls too."""
+def meta_forward(model, x, **kw):
+    """One eval forward of ``model`` on the meta tensor ``x`` without
+    gradient: shapes only, nothing computed. The parameters and buffers are
+    swapped for meta twins (``torch.func.functional_call``), so a model on
+    the card serves too. In eval mode no block is rematerialized and no
+    dropout drawn, so each site runs once."""
     import torch
 
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in (*model.named_parameters(), *model.named_buffers())}
+    training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            torch.func.functional_call(model, meta, (x,), kw)
+    finally:
+        model.train(training)
+
+
+def record_norm_sites(model, x, **kw):
+    """The conv-path InstanceNorm sites of one forward of ``model`` on
+    ``x`` (``meta_forward``): (shape, act) -> calls, and the residual tails
+    of instance kind (``ConvNorm.tail``) as (norm module, shape, raw
+    residual), in call order. On the meta device every tail takes its plain
+    composition, so its norms are among the (shape, act) calls too."""
     from hybrid_ctunet_tpu_torch.models import layers
 
     sites = collections.Counter()
@@ -279,18 +292,32 @@ def record_norm_sites(model, x, **kw):
             tails.append((norm, tuple(a.shape), residual_norm is not None))
         return orig_tail(norm, a, residual, residual_norm)
 
-    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-            for k, v in (*model.named_parameters(), *model.named_buffers())}
-    training = model.training
     layers.instance_norm_act, layers.ConvNorm.tail = rec, rec_tail
     try:
-        model.eval()
-        with torch.no_grad():
-            torch.func.functional_call(model, meta, (x,), kw)
+        meta_forward(model, x, **kw)
     finally:
         layers.instance_norm_act, layers.ConvNorm.tail = orig, orig_tail
-        model.train(training)
     return sites, tails
+
+
+def record_conv_sites(model, x, **kw):
+    """(x shape, w shape, stride) -> calls of ``conv3d_same`` in one forward
+    of ``model`` on ``x`` (``meta_forward``)."""
+    from hybrid_ctunet_tpu_torch.models import layers, swin_unetr
+
+    sites = collections.Counter()
+    orig = layers.conv3d_same
+
+    def rec(t, w, stride=1):
+        sites[(tuple(t.shape), tuple(w.shape), layers._triple(stride))] += 1
+        return orig(t, w, stride)
+
+    layers.conv3d_same = swin_unetr.conv3d_same = rec
+    try:
+        meta_forward(model, x, **kw)
+    finally:
+        layers.conv3d_same = swin_unetr.conv3d_same = orig
+    return sites
 
 
 def phase_kernels(device):
@@ -508,6 +535,7 @@ def phase_kernels(device):
 
     results["instance_norm"] = norm_rows(randn, nbytes)
     results["conv3x3_winograd"] = winograd_rows(randn, nbytes)
+    results["conv3x3"] = conv3x3_rows(randn, nbytes)
     return results
 
 
@@ -802,6 +830,89 @@ def winograd_rows(randn, nbytes):
     return row
 
 
+def conv3x3_rows(randn, nbytes):
+    """K10 at each conv site of a Swin-UNETR chunk that its gate takes (eight
+    calls, recorded from a meta forward at 96^3): per site the wrapper, the C
+    entry alone (``conv3x3.conv3x3_call``), the plain path (``F.conv3d`` as
+    ``conv3d_same`` calls it), the library yardstick (the same call with
+    ``torch.backends.cudnn.benchmark`` set around its timing alone: the port
+    never sets it), the bound, the largest difference from the plain path
+    and a rerun bit for bit; then the kernel once at the TUNet's C 64 96^3
+    input (not gated, for the record) beside cuDNN's 64 -> 64 and 64 -> 48
+    convs there."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.models import SwinUNETR
+    from hybrid_ctunet_tpu_torch.ops import conv3x3
+
+    bf = torch.bfloat16
+    sites = record_conv_sites(SwinUNETR(dtype=bf, device="meta"),
+                              torch.empty(CHUNK, *bench.ROI, 1, device="meta"))
+    gated = {(x, w): n for (x, w, s), n in sorted(sites.items())
+             if conv3x3.supports(x, w, s, bf, torch.device("cuda"))}
+    if sum(gated.values()) != 8:
+        raise AssertionError(f"K10's gate takes {gated} of a Swin-UNETR chunk's convs, not 8")
+
+    def library_ms(fn):
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            return cuda_time_ms(fn)
+        finally:
+            torch.backends.cudnn.benchmark = saved
+
+    t = Tally(library=True)
+    rows, alone_sum, flops_sum = [], 0.0, 0
+    for (xs, ws), calls in gated.items():
+        cin = xs[-1]
+        x = randn(*xs, dtype=bf)
+        w = randn(*ws, std=(2.0 / (27 * cin)) ** 0.5).to(bf)  # as Conv3d hands it over
+        got = conv3x3.conv3x3(x, w)
+        want = conv3x3.reference_conv3x3(x, w)
+        err = check_bf16(f"conv3x3 {xs} -> 48", got, want)
+        if not torch.equal(got, conv3x3.conv3x3(x, w)):
+            raise AssertionError(f"conv3x3 {xs}: a rerun is not bit-identical")
+        ms = cuda_time_ms(lambda: conv3x3.conv3x3(x, w))
+        fn, args, _, keep = conv3x3.conv3x3_call(x, w)
+        alone = cuda_time_ms(lambda: fn(*args))  # the C entry on bound arguments
+        plain = cuda_time_ms(lambda: conv3x3.reference_conv3x3(x, w))
+        lib = library_ms(lambda: conv3x3.reference_conv3x3(x, w))
+        flops = 2 * 27 * cin * 48 * got[..., 0].numel()
+        site = Tally(library=True)
+        for tally in (t, site):
+            tally.add(err, calls, ms, plain, nbytes(x, w, got), flops, lib)
+        bound = site.bound_ms / calls
+        log(f"  conv3x3 {xs} x{calls} (rerun bit-identical): {ms!r} ms, kernel alone {alone!r} ms, "
+            f"plain {plain!r} ms, cudnn.benchmark {lib!r} ms, bound {bound!r} ms "
+            f"({100 * bound / ms:.1f}%), max diff from plain {err!r}")
+        rows.append({"x": list(xs), "calls": calls, **site.row(), "kernel_alone_ms": alone,
+                     "max_diff_vs_plain": err})
+        alone_sum += calls * alone
+        flops_sum += calls * flops
+        del keep
+    row = {**t.row(), "kernel_alone_ms": alone_sum, "sites": rows,
+           "bf16_peak_share": flops_sum / BF16_FLOP_PER_S / (t.ms / 1e3)}
+    log(f"  conv3x3 a Swin-UNETR chunk: {t.ms!r} ms ({100 * row['bf16_peak_share']:.1f}% of "
+        f"bf16 peak), plain {t.plain_ms!r} ms, cudnn.benchmark {t.library_ms!r} ms, bound "
+        f"{t.bound_ms!r} ms")
+    del x, w, got, want
+
+    x = randn(CHUNK, *bench.ROI, 64, dtype=bf)
+    w48, w64 = (randn(f, 64, 3, 3, 3, std=(2.0 / (27 * 64)) ** 0.5).to(bf) for f in (48, 64))
+    fn, args, _, keep = conv3x3.conv3x3_call(x, w48)
+    c64 = {"kernel_48_ms": cuda_time_ms(lambda: fn(*args)),
+           "cudnn_48_ms": cuda_time_ms(lambda: conv3x3.reference_conv3x3(x, w48)),
+           "cudnn_64_ms": cuda_time_ms(lambda: conv3x3.reference_conv3x3(x, w64))}
+    flops48 = 2 * 27 * 64 * 48 * x[..., 0].numel()
+    c64["kernel_48_tflops"] = flops48 / c64["kernel_48_ms"] / 1e9
+    c64["cudnn_64_tflops"] = flops48 * 64 / 48 / c64["cudnn_64_ms"] / 1e9
+    log(f"  conv3x3 at the TUNet's C 64 96^3 input (not gated): {c64!r}")
+    row["tunet_c64"] = c64
+    del keep, x
+    return row
+
+
 def tree_launches(model, res_only: bool = False, training: bool = False, remat: bool = False):
     """Kernel launches per chunk that the module tree of a TUNet, CTUNet or
     CUNet forward implies (CTUNet ``res_only``: the ensemble's predictor).
@@ -856,7 +967,8 @@ def tree_launches(model, res_only: bool = False, training: bool = False, remat: 
 
     got = {"scatter_add_windows": 1, "window_attention": 0, "ffn": 0, "ffn_pair": 0,
            "pixel_shuffle_linear": 0, "transp_conv_kxs": 0, "pixelweight": 0,
-           "instance_norm": 0, "conv3x3_winograd": 0, "instance_norm.residual": 0}
+           "instance_norm": 0, "conv3x3_winograd": 0, "conv3x3": 0,
+           "instance_norm.residual": 0}
     if not isinstance(model, CUNet):
         stages = list(model.vit_encoder.layers[:3 if res_only else 4])
         got["window_attention"] = count(stages, layers.MultiAxisWindowAttention,
@@ -926,7 +1038,8 @@ def per_call_checks():
 
     import torch.nn.functional as F
 
-    from hybrid_ctunet_tpu_torch.ops import attention, ffn, norm, pixelweight, shuffle, winograd
+    from hybrid_ctunet_tpu_torch.ops import (attention, conv3x3, ffn, norm, pixelweight, shuffle,
+                                             winograd)
 
     def plain_ffn(x, *p, residual=False):
         out = ffn.reference_ffn(x, *p)
@@ -949,6 +1062,7 @@ def per_call_checks():
              norm.reference_instance_norm(x, eps), negative_slope)),
         (norm, "instance_norm_add_leaky", plain_tail),
         (winograd, "conv3x3_winograd", winograd.reference_conv3x3_winograd),
+        (conv3x3, "conv3x3", conv3x3.reference_conv3x3),
     )
 
     @contextlib.contextmanager
@@ -1594,9 +1708,9 @@ def phase_trained_check(device, work, logs, windows, epochs: int = C6_EPOCHS):
 def phase_train_cli(device, work):
     """``train_main`` end to end, as main_CTUNet.py runs it: --synthetic,
     two epochs, validation at the second, the three best-metric files and
-    latest.pt, which must load back into a fresh CTUNet. Every kernel,
-    K1 (validation) included, launches in the run. The checkpoints stay in
-    ``work/train`` for C6 and phase 7."""
+    latest.pt, which must load back into a fresh CTUNet. Every kernel the
+    CTUNet's module tree has, K1 (validation) included, launches in the
+    run. The checkpoints stay in ``work/train`` for C6 and phase 7."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
@@ -1620,9 +1734,9 @@ def phase_train_cli(device, work):
     missing = {"model_hybrid.pt", "model_res.pt", "model_vit.pt", "latest.pt"} - set(files)
     if missing:
         raise AssertionError(f"train_main did not write {sorted(missing)}")
-    if not all(counts.values()):
-        raise AssertionError(f"a kernel was not launched in the CLI run: {counts}")
     fresh = factory.build_model(train_args(), device)
+    if not all(counts[k] for k, v in tree_launches(fresh).items() if v):
+        raise AssertionError(f"a kernel of the CTUNet was not launched in the CLI run: {counts}")
     ckpt = load_weights(fresh, os.path.join(logs, "latest.pt"))
     if ckpt["epoch"] != 2 or not all(torch.isfinite(p).all() for p in fresh.parameters()):
         raise AssertionError(f"latest.pt: epoch {ckpt['epoch']} or non-finite weights")
@@ -2429,18 +2543,20 @@ def phase_single(device, work, ct_logs, common):
 
 def swin_tree_launches(model, training: bool = False, remat: bool = False):
     """Kernel launches per 4-window chunk that a Swin-UNETR forward implies:
-    one window attention (K2) a transformer block; a transposed conv (K6)
+    one window attention (K2) a transformer block; a conv (K10) at each
+    stride-1 3^3 conv to 48 channels (encoder1, encoder2, and decoder1-2's
+    ResBlocks: 8); a transposed conv (K6)
     where its gate takes the decoder's input (Cin 192 and up: decoder1 and
     decoder2, at Cin 48 and 96, run K6's plain GEMM); every InstanceNorm
     (K8), a tail's folded projection norm in the same record
     (``ops.norm.folds``); the engine's scatter (K1). ``training`` with
     ``remat``: each transformer block and ResBlock runs its forward again
-    in the backward, its K2 and K8 calls with it."""
+    in the backward, its K2, K8 and K10 calls with it."""
     import torch
 
     from hybrid_ctunet_tpu_torch.cli import bench
     from hybrid_ctunet_tpu_torch.models import layers, swin_unetr
-    from hybrid_ctunet_tpu_torch.ops import norm, shuffle
+    from hybrid_ctunet_tpu_torch.ops import conv3x3, norm, shuffle
 
     x = torch.empty(CHUNK, *bench.ROI, 1, device="meta")
     _, tails = record_norm_sites(model, x)
@@ -2452,10 +2568,18 @@ def swin_tree_launches(model, training: bool = False, remat: bool = False):
                     for mod in mods for m in mod.modules())
         return norms - sum(raw and norm.folds(shape) for shape, raw in mine), len(mine)
 
+    def k10(mods):
+        return sum(isinstance(m, layers.Conv3d) and m.stride == (1, 1, 1)
+                   and conv3x3.supports((CHUNK, 8, 8, 8, m.conv.weight.shape[1]),
+                                        tuple(m.conv.weight.shape), m.stride, model.dtype,
+                                        torch.device("cuda"))
+                   for mod in mods for m in mod.modules())
+
     blocks = [m for m in model.modules() if isinstance(m, swin_unetr.SwinBlock)]
     got = dict.fromkeys(("scatter_add_windows", "window_attention", "ffn", "ffn_pair",
                          "pixel_shuffle_linear", "transp_conv_kxs", "pixelweight",
-                         "instance_norm", "conv3x3_winograd", "instance_norm.residual"), 0)
+                         "instance_norm", "conv3x3_winograd", "conv3x3",
+                         "instance_norm.residual"), 0)
     got["scatter_add_windows"] = 1
     got["window_attention"] = len(blocks)
     for k in range(1, 6):
@@ -2464,8 +2588,10 @@ def swin_tree_launches(model, training: bool = False, remat: bool = False):
         got["transp_conv_kxs"] += shuffle.transp_supports(
             (CHUNK, side, side, side, w.shape[0]), tuple(w.shape), model.dtype)
     got["instance_norm"], got["instance_norm.residual"] = k8([model])
+    got["conv3x3"] = k10([model])
     if training and remat:
         got["window_attention"] += len(blocks)
+        got["conv3x3"] += k10([m for m in model.modules() if isinstance(m, layers.ResBlock)])
         again = k8([m for m in model.modules() if isinstance(m, layers.ResBlock)])
         got["instance_norm"] += again[0]
         got["instance_norm.residual"] += again[1]

@@ -1,10 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (ffn.cu,
-// transp_conv.cu): mbarriers, bulk and tensor (TMA) copies, wgmma
-// descriptors and the wgmma forms they issue, written as inline PTX.
+// transp_conv.cu, conv3x3.cu): mbarriers, bulk and tensor (TMA) copies,
+// wgmma descriptors and the wgmma forms they issue, written as inline PTX.
 //
-// Shared-memory operands are K-major bf16 tiles with the 128-byte swizzle:
+// Shared-memory operands are K-major bf16 tiles: with the 128-byte swizzle,
 // rows of 64 elements (128 B), 8-row atoms of 1024 B, the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8). A tile starts on a 1024-byte boundary.
+// row r stored at chunk c ^ (r % 8), a tile starting on a 1024-byte
+// boundary; with the 32-byte swizzle (conv3x3.cu), rows of 16 elements
+// (32 B), the two 16-byte chunks of a row swapped where address bit 7 is
+// set; or without swizzle (conv3x3.cu), core matrices of 8 rows x 8
+// elements, a row's 16 bytes right after the previous row's.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +98,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int c0,
       "l"(tmap), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
 }
+// 5D tensor-map load of one box at (c0 innermost, ..., c4); coordinates may
+// lie outside the tensor, and the box's elements there are filled with zeros
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* tmap, int c0, int c1, int c2,
+                                            int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_addr(dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(smem_addr(bar))
+      : "memory");
+}
 // make this thread's generic-proxy shared-memory writes visible to the
 // async proxy (wgmma operands, bulk stores)
 __device__ __forceinline__ void fence_async_smem() {
@@ -109,6 +123,21 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t a = smem_addr(tile);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+// descriptor of a K-major tile without swizzle: core matrices (8 rows of 16
+// B, back to back) `lbo` bytes apart along K and `sbo` bytes apart along
+// M or N
+__device__ __forceinline__ uint64_t desc_plain(const void* tile, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+// descriptor of a K-major tile with the 32-byte swizzle: rows of 32 B (k 0-15),
+// 8-row groups `sbo` bytes apart. The swizzle acts on the address bits
+// themselves, so the tile may start at any 32-byte row of a buffer that TMA
+// filled with the same swizzle from a 1024-byte boundary
+__device__ __forceinline__ uint64_t desc_sw32(const void* tile, uint32_t sbo) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
 }
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
@@ -137,6 +166,21 @@ __device__ __forceinline__ void wgmma_64x64_ss(float* d, uint64_t da, uint64_t d
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64x48] (+)= A[64x16] B[16x48]^T, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_64x48_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

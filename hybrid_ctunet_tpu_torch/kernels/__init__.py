@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("scatter", "window_attention", "ffn", "pixel_shuffle", "transp_conv", "pixelweight",
-           "instance_norm", "winograd")
+           "instance_norm", "winograd", "conv3x3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,7 +48,7 @@ class KernelInfo:
     name: str  # wrapper function name, also the kernel's name in reports
     module: str  # module of this package that holds the wrapper
     source: str  # CUDA source, relative to the repository root
-    replaces: str  # the Pallas kernel it ports (file:line in the JAX package)
+    replaces: str  # the Pallas kernel it ports (file:line in the JAX package), or "none"
     # the __global__ functions one counted launch runs exactly one of (a
     # packing or filter launch beside it is not counted)
     symbols: Tuple[str, ...]
@@ -91,6 +91,10 @@ KERNELS: Tuple[KernelInfo, ...] = (
                "hybrid_ctunet_tpu_torch/csrc/winograd.cu",
                "hybrid_ctunet_tpu/ops/winograd_pallas.py:210",
                ("wino_kernel",)),
+    KernelInfo("conv3x3", "ops.conv3x3",
+               "hybrid_ctunet_tpu_torch/csrc/conv3x3.cu",
+               "none (the JAX package runs these convs on XLA, hybrid_ctunet_tpu/ops/conv.py:75)",
+               ("c3_kernel", "c3_c1_kernel")),
 )
 
 
@@ -179,12 +183,12 @@ def reconcile(traced: Mapping[str, int], launched: Mapping[str, int]) -> None:
 def gates_off():
     """Every kernel module's gate declines while this stands, so each site
     takes its plain version."""
-    from ..ops import attention, ffn, norm, pixelweight, shuffle, winograd
+    from ..ops import attention, conv3x3, ffn, norm, pixelweight, shuffle, winograd
 
     saved = [(m, n, getattr(m, n)) for m, n in (
         (attention, "supports"), (ffn, "supports"), (ffn, "pair_supports"),
         (shuffle, "supports"), (shuffle, "transp_supports"), (pixelweight, "supports"),
-        (norm, "supports"), (winograd, "supports"))]
+        (norm, "supports"), (winograd, "supports"), (conv3x3, "supports"))]
     for m, n, _ in saved:
         setattr(m, n, lambda *a, **k: False)
     try:

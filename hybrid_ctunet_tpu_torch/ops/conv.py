@@ -8,7 +8,8 @@ NCDHW view of that memory, which is ``torch.channels_last_3d``, so cuDNN
 takes its channels-last path and no copy is made. The JAX package runs these
 convs on XLA, not on a kernel of its own, so cuDNN is the counterpart —
 except the stride-1 3^3 convs that ``ops.winograd``'s gate takes (K9, where
-the JAX hook sits at ``ops/conv.py:100``).
+the JAX hook sits at ``ops/conv.py:100``) and those to 48 channels that
+``ops.conv3x3``'s gate takes (K10, which has no JAX counterpart).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import shuffle, winograd
+from . import conv3x3, shuffle, winograd
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -66,12 +67,15 @@ def conv3d_same(
     x: (B, X, Y, Z, Cin); w: (Cout, Cin, kx, ky, kz), torch's Conv3d layout
     (the JAX function takes DHWIO). Output (B, X', Y', Z', Cout) in x's dtype
     with X' = floor((X + 2p - k)/s) + 1, p = (k - s + 1)//2. On a CUDA
-    tensor that K9's gate admits the conv is K9; elsewhere, the CPU
-    included, it is the direct conv (the JAX default, ``WINOGRAD=0``).
+    tensor that K9's gate admits the conv is K9, then where K10's gate
+    admits it K10; elsewhere, the CPU included, it is the direct conv (the
+    JAX default, ``WINOGRAD=0``).
     """
     s = _triple(stride)
     if x.is_cuda and winograd.supports(x.shape, w.shape, s, x.dtype):
         return winograd.conv3x3_winograd(x, w)
+    if conv3x3.supports(x.shape, w.shape, s, x.dtype, x.device):
+        return conv3x3.conv3x3(x, w)
     p = same_padding(tuple(w.shape[2:]), s)
     xc = x.permute(0, 4, 1, 2, 3)
     wc = w.contiguous(memory_format=torch.channels_last_3d)

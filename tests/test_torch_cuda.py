@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_ctunet_tpu_torch.ops import (attention, ffn, norm, pixelweight, scatter, shuffle,
-                                         winograd)
+from hybrid_ctunet_tpu_torch.ops import (attention, conv3x3, ffn, norm, pixelweight, scatter,
+                                         shuffle, winograd)
 from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
 
 from torch_threads import two_threads  # noqa: F401 (autouse: two torch threads)
@@ -569,6 +569,74 @@ def test_winograd_fused_stats_reproducible(dev, shape, f):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _conv3x3_case(dev, seed, shape):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(gen, *shape, dtype=BF, dev=dev)
+    w = _randn(gen, 48, shape[-1], 3, 3, 3, std=(2.0 / (27 * shape[-1])) ** 0.5, dev=dev)
+    return x, w
+
+
+@pytest.mark.parametrize("cin", [1, 48, 96])
+@pytest.mark.parametrize("space", [(5, 7, 9), (12, 16, 20), (48, 48, 48)])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_conv3x3(dev, cin, space, batch):
+    """K10 against the exact conv of its bf16 operands (fp32 ``F.conv3d``,
+    TF32 off) and the plain path (cuDNN in bf16). Ragged bricks (5 x 7 x 9
+    and 12 x 16 x 20 are no multiples of the 8^3 brick), one launch a call,
+    bit for bit on a rerun. Tolerance: the kernel sums in fp32 and rounds
+    once, so it lies within half a bf16 ulp (2^-8 relative) of the exact
+    sum, plus the fp32 sums' own rounding in either order (2^-12 of the
+    largest output); the plain path rounds once too, so the two may differ
+    by an ulp."""
+    x, w = _conv3x3_case(dev, 20 + cin + batch, (batch, *space, cin))
+    before = conv3x3.conv3x3.launches
+    got = conv3x3.conv3x3(x, w)
+    assert conv3x3.conv3x3.launches == before + 1
+    assert got.shape == (batch, *space, 48) and got.dtype == BF
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    try:
+        exact = torch.nn.functional.conv3d(x.float().permute(0, 4, 1, 2, 3),
+                                           w.to(BF).float(), padding=1).permute(0, 2, 3, 4, 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    d = (got.float() - exact).abs()
+    assert (d <= 2.0 ** -8 * exact.abs() + 2.0 ** -12 * exact.abs().max()).all(), d.max().item()
+    _bf16_close(got, conv3x3.reference_conv3x3(x, w))
+    assert torch.equal(got, conv3x3.conv3x3(x, w))
+
+
+def test_conv3x3_takes_bf16_weights_as_fp32_ones(dev):
+    """The packing launch reads fp32 or bf16 weights: the same conv either
+    way, bit for bit, rounded as ``w.to(bf16)`` rounds."""
+    x, w = _conv3x3_case(dev, 5, (2, 9, 10, 11, 96))
+    assert torch.equal(conv3x3.conv3x3(x, w), conv3x3.conv3x3(x, w.to(BF)))
+
+
+def test_conv3x3_refuses_other_shapes(dev):
+    """A CUDA tensor the gate declines raises instead of taking another path."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for xs, ws, dtype in (((1, 8, 8, 8, 32), (48, 32, 3, 3, 3), BF),
+                          ((1, 8, 8, 8, 48), (64, 48, 3, 3, 3), BF),
+                          ((1, 8, 8, 8, 48), (48, 48, 3, 3, 3), torch.float32)):
+        with pytest.raises(ValueError):
+            conv3x3.conv3x3(_randn(gen, *xs, dtype=dtype, dev=dev), _randn(gen, *ws, dev=dev))
+
+
+def test_conv3d_same_routes_48_channel_sites_to_k10(dev):
+    """conv3d_same hands a gated conv to K10, and fp32 or stride 2 to the
+    direct conv."""
+    from hybrid_ctunet_tpu_torch.ops import conv as conv_ops
+
+    x, w = _conv3x3_case(dev, 13, (1, 6, 8, 10, 48))
+    before = conv3x3.conv3x3.launches
+    conv_ops.conv3d_same(x.float(), w)
+    conv_ops.conv3d_same(x, w.to(BF), stride=2)
+    assert conv3x3.conv3x3.launches == before
+    got = conv_ops.conv3d_same(x, w.to(BF))
+    assert conv3x3.conv3x3.launches == before + 1
+    assert torch.equal(got, conv3x3.conv3x3(x, w.to(BF)))
+
+
 def _grads(fn, inputs, gen):
     """fn's outputs and the gradients of a fixed random projection of them."""
     leaves = [t.detach().clone().requires_grad_(t.is_floating_point()) for t in inputs]
@@ -598,6 +666,8 @@ def _kernel_and_plain(dev):
                    for _ in range(2)) for shape in ((2, 4, 6, 8, 64), (2, 20, 20, 20, 64))]
     xw = _randn(gen, 1, 4, 6, 8, 32, dtype=BF, dev=dev)
     ww = _randn(gen, 32, 32, 3, 3, 3, std=0.05, dev=dev)
+    xc = {c: _randn(gen, 2, 5, 7, 9, c, dtype=BF, dev=dev) for c in conv3x3.CINS}
+    wc = {c: _randn(gen, 48, c, 3, 3, 3, std=0.05, dev=dev) for c in conv3x3.CINS}
     sc, bi = 1 + _randn(gen, 1, 32, std=0.1, dev=dev), _randn(gen, 1, 32, std=0.1, dev=dev)
     return [
         ("window_attention", lambda *a: attention.window_attention(*a, 6, BF),
@@ -621,6 +691,8 @@ def _kernel_and_plain(dev):
                + (norm.reference_instance_norm(r) if raw else r), 0.01), t)
           for t in tails for raw in (False, True)],
         ("conv3x3_winograd", winograd.conv3x3_winograd, winograd.direct_conv3x3, (xw, ww)),
+        *[(f"conv3x3 C {c}", conv3x3.conv3x3, conv3x3.reference_conv3x3, (xc[c], wc[c]))
+          for c in conv3x3.CINS],
         ("conv3x3_winograd_fused",
          lambda x, w, s, b: winograd.conv3x3_winograd_fused(x, w, (s, b), in_act=True,
                                                             emit_stats=True),
