@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+It checks; it does not measure the port end to end (``python3 -m
+benchmark.run`` does). Its timings are phase 3's kernel table and the
+per-chunk times beside it. Phases, in order; any failure raises and the
+script exits non-zero:
 
 1. Device: ``nvidia-smi`` name and power limit, torch and CUDA versions, the
    TF32 / reduced-precision flags (set off, and printed).
@@ -30,7 +33,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. The TUNet slice: full-width TUNet (109,904,124 params, random weights from
    a seed, bf16) through ``cli/bench.py``'s functions, one 256x256x128 volume
    at overlap 0.7 (147 windows, sw_batch 4); every launch counted and held
-   equal to the count the module tree implies; 2 timed volumes; one 4-window
+   equal to the count the module tree implies; one 4-window
    batch with every kernel call held to its plain version on the model's
    activations, and the output against the same model on plain versions;
    the TUNet saved as a reference-format checkpoint for phase 7.
@@ -38,7 +41,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    174,109,542 params, res head only, overlap 0.5, 50 windows) and the
    TUNet, softmax-mean and argmax over the same volume; launch counts per
    volume equal to the module tree's for all nine kernels and K8's residual
-   tails (``instance_norm.residual``); 2 timed volumes;
+   tails (``instance_norm.residual``);
    one 4-window CTUNet batch checked as the TUNet one (every gate off for
    the plain run); one 4-window batch of full-width CUNet (50,779,754
    params).
@@ -47,10 +50,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes (CUNet's decoder sites included); the full-width CTUNet trained
    on --synthetic data through the
    port's train step at batch 4 x 96^3 in bf16 with block remat on (the
-   default) and off, one warm-up each and 5 timed steps each in turns,
-   s/step and peak memory of each, launches per step equal to the module
-   tree's (with remat, K8 and K9 of the rematerialized blocks twice) and a
-   finite loss; one step's gradients with remat equal to those without;
+   default) and off, one warm-up and one checked step each, the checked
+   step's peak memory, launches per step equal to the module tree's (with
+   remat, K8 and K9 of the rematerialized blocks twice) and a finite loss;
+   one step's gradients with remat equal to those without;
    one profiled step; then ``cli/train_main.py`` end to end (two epochs, a
    validation pass, the three best-metric checkpoints and latest.pt, which
    must load back; the checkpoints are kept for phase 7). C6: that
@@ -70,16 +73,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host.
 8. The remaining training configurations, this slice's main path, at full
    width (ResNet-101, pf 8, batch 1 x 4 crops of 96^3, bf16, AdamW):
-   (a) ``--dropout_rate 0.2``: a warm-up and 3 timed steps with remat on
-   and off in turns, finite losses and launches equal to the tree's with
+   (a) ``--dropout_rate 0.2``: a warm-up and a checked step with remat on
+   and off, finite losses and launches equal to the tree's with
    the dropout sites plain; the gradients with remat equal those without;
    a step redone at the same (seed, step) draws the same masks, and every
    mask a recompute draws equals its forward's; in eval mode the res
    logits equal a rate-0 model's bit for bit on a chunk. Then
    ``--batch_size 2`` (8 crops a step) with dropout and remat, which
-   needs remat to fit the card: its s/step and peak.
-   (b) ``--norm_name batch``: a warm-up and 3 timed steps with remat on
-   and off in turns (K8 at no BatchNorm site), the running buffers moved
+   needs remat to fit the card: its peak memory.
+   (b) ``--norm_name batch``: a warm-up and a checked step with remat on
+   and off (K8 at no BatchNorm site), the running buffers moved
    and finite, and after one step equal with remat and without, as are the
    gradients; one profiled step, an eval chunk with every kernel held to
    its plain version.
@@ -87,23 +90,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, ``train_main --distributed`` for one epoch with validation (its
    checkpoints written once, ``latest.pt`` reloaded), and ``test_final
    --distributed`` on phase 7's case, whose masks must equal phase 7's.
-   Each sub-phase's s/step, peak memory and launches; the run's wall time.
-9. The measuring layer: the ensemble at 8 windows a chunk (launches per
-   volume equal to the module tree's x 7 CTUNet and 19 TUNet chunks, K1
-   bit-exact on each engine's first 8-window and trailing 2- and 3-window
-   chunks, one 8-window chunk of each model with every kernel call held to
-   its plain version, 2 timed volumes at 8 beside 2 at 4, the hybrid's MFU
-   at each); ``cli/mfu.py``'s useful FLOPs, chunk ms and MFU of both models
-   at 4 and 8; ``cli/bench.py::profile_device`` on a warm volume of each
-   half with every kernel's traced records equal to its launch counter (as
-   in the profiled steps of phases 6 and 8b); ``utils.profiling.
-   enable_nan_checks`` catching a NaN planted in a TUNet chunk.
+   Each sub-phase's peak memory and launches; the run's wall time.
+9. The ensemble at 8 windows a chunk (launches per volume equal to the
+   module tree's x 7 CTUNet and 19 TUNet chunks, K1 bit-exact on each
+   engine's first 8-window and trailing 2- and 3-window chunks, one
+   8-window chunk of each model with every kernel call held to its plain
+   version); ``utils/profiling.py::profile_device`` on a warm volume of
+   each half with every kernel's traced records equal to its launch
+   counter (as in the profiled steps of phases 6 and 8b); ``utils.
+   profiling.enable_nan_checks`` catching a NaN planted in a TUNet chunk.
 10. main_C_TUNet.py's workflow at full width (batch 1 x 4 crops of 96^3,
    bf16, AdamW, --synthetic): (a) the TUNet (pf 8, 109,904,124 params) and
-   CUNet (ResNet-101, 50,779,754 params) train steps, a warm-up and 3 timed
-   steps each with remat on and off in turns, launches equal to the module
-   tree's, finite losses, s/step and peak memory, one step's gradients with
-   remat against without; (b) ``python -m hybrid_ctunet_tpu_torch.cli.
+   CUNet (ResNet-101, 50,779,754 params) train steps, a warm-up and a
+   checked step each with remat on and off, launches equal to the module
+   tree's, finite losses, peak memory, one step's gradients with remat
+   against without; (b) ``python -m hybrid_ctunet_tpu_torch.cli.
    train_main c_tunet --model_name tunet``, then ``cunet``, two epochs with
    validation, each writing its best-metric file (``model_vit.pt``,
    ``model_res.pt``) and latest.pt, both loaded back, every kernel of the
@@ -111,6 +112,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 7's case, checked as phase 7's runs, HD95 computed from its saved
    mask; (d) ``test_final`` on phase 6's trained CTUNet and (b)'s trained
    TUNet (the README's train, train, evaluate).
+11. Swin-UNETR (MONAI's BTCV model, 62,187,296 params) at full width: K2's
+   head-width-16 instance at each stage's shapes and K8 at its C = 48 * 2^k
+   InstanceNorm and tail sites against their plain versions, bit for bit on
+   a rerun, timed per chunk with the plain version, the library call and
+   the bound; a 4-window chunk with every kernel call held to its plain
+   version, launches, K2's windows and K8's launches at the new widths
+   against the module tree, the traced records reconciled with the
+   counters, the chunk's time and peak memory; a 256x256x128 volume with
+   its launches against the tree; train steps with remat on and off;
+   ``train_main c_tunet --model_name swin_unetr`` and ``test_single`` on
+   its ``model_vit.pt``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -123,6 +135,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -152,6 +165,15 @@ C6_EPOCHS = 32
 
 def log(*a):
     print(*a, flush=True)
+
+
+def device_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps: int = 5, calls: int = 10) -> float:
@@ -539,9 +561,37 @@ def phase_kernels(device):
     return results
 
 
+def k1_chunks(device):
+    """(name, acc, pred, imp, starts) of K1's four main-path chunk shapes on
+    the 256x256x128x15 canvas: windows 4-7 of the TUNet (overlap 0.7) and of
+    the CTUNet (0.5) engines, and each engine's trailing chunk (3 of the
+    TUNet's 147 windows, 2 of the CTUNet's 50); random canvas, bf16
+    predictions as the models emit them."""
+    import torch
+
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.infer.sliding_window import SlidingWindowEngine
+    from hybrid_ctunet_tpu_torch.ops.importance import gaussian_importance_map
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    imp = torch.tensor(gaussian_importance_map(bench.ROI), device=device)
+    acc = torch.randn(*bench.VOLUME_SHAPE, bench.OUT_CHANNELS + 1, generator=gen, device=device)
+    pred = torch.randn(4, *bench.ROI, bench.OUT_CHANNELS, generator=gen,
+                       device=device).to(torch.bfloat16)
+    chunks = []
+    for model, overlap in (("tunet", bench.OVERLAP), ("ctunet", bench.CT_OVERLAP)):
+        starts = SlidingWindowEngine(None, bench.ROI, overlap=overlap).plan(bench.VOLUME_SHAPE)[3]
+        last = (len(starts) - 1) // 4 * 4
+        for name, s in ((f"{model} windows 4-7", starts[4:8]),
+                        (f"{model} trailing ({len(starts) - last} of {len(starts)})",
+                         starts[last:])):
+            chunks.append((name, acc, pred[:len(s)].contiguous(), imp, s))
+    return chunks
+
+
 def scatter_rows(device):
     """K1 at its four main-path chunk shapes on the 256x256x128x15 canvas
-    (``kernel_variants.k1_chunks``: windows 4-7 of the TUNet engine at
+    (``k1_chunks``: windows 4-7 of the TUNet engine at
     overlap 0.7, the row, and of the CTUNet engine at 0.5; each engine's
     trailing chunk, 3 and 2 windows), each held bit for bit to its plain
     version and timed with the plain version and the bound: the canvas the
@@ -550,7 +600,6 @@ def scatter_rows(device):
     import numpy as np
     import torch
 
-    from hybrid_ctunet_tpu_torch.cli.kernel_variants import k1_chunks
     from hybrid_ctunet_tpu_torch.ops import scatter
 
     row, chunks = None, []
@@ -1218,14 +1267,11 @@ def phase_tunet(device, work):
     check_mask(mask)
     del logits, mask
 
-    stats = bench.time_volumes(engine, volume, reps=2, warmup=False)
-    log(f"  timed volumes {stats['seconds_per_volume']!r} s -> "
-        f"{stats['volumes_per_min']!r} vol/min; peak memory {stats['peak_mem_bytes']} B")
     model_check("TUNet", lambda x: model(x)[0], device)
     path = save_checkpoint(os.path.join(work, "tunet"), "model_vit.pt", model,
                            make_optimizer(model.parameters()), epoch=0, best_acc=0.0)
     log(f"  saved {path}")
-    return model, engine, volume, stats
+    return model, engine, volume
 
 
 def phase_hybrid(tunet, tu_engine, volume, device):
@@ -1268,10 +1314,6 @@ def phase_hybrid(tunet, tu_engine, volume, device):
     check_mask(mask)
     del res_map, tu_map, prob, mask
 
-    stats = bench.time_hybrid(ct_engine, tu_engine, volume, reps=2, warmup=False)
-    log(f"  timed hybrid volumes {stats['seconds_per_volume']!r} s (CTUNet "
-        f"{stats['ctunet_seconds_per_volume']!r}, TUNet {stats['tunet_seconds_per_volume']!r}) "
-        f"-> {stats['volumes_per_min']!r} vol/min; peak memory {stats['peak_mem_bytes']} B")
     model_check("CTUNet res head", lambda x: ctunet(x, res_only=True), device, chaotic=True)
     del ctunet, ct_engine
     torch.cuda.empty_cache()
@@ -1300,7 +1342,7 @@ def phase_hybrid(tunet, tu_engine, volume, device):
             or not all(torch.isfinite(o.float()).all() for o in outs):
         raise AssertionError(f"CUNet outputs {shapes} or non-finite")
     log(f"  CUNet outputs {shapes}, finite")
-    return stats, hybrid_counts
+    return hybrid_counts
 
 
 def grad_cases(device):
@@ -1451,7 +1493,7 @@ def train_args(extra=(), model_name: str = "ctunet"):
         ["--model_depths", "101", "--patch_frame", "8", "--model_name", model_name, *extra])
 
 
-def build_train(device, extra=(), steps: int = 12, model_name: str = "ctunet"):
+def build_train(device, extra=(), steps: int = 4, model_name: str = "ctunet"):
     """The full-width model of ``train_args(extra, model_name)`` on the card,
     its train step, the LR of epoch 1 and the module tree's launches per
     step with remat on and off, with the ``--synthetic`` batches
@@ -1497,64 +1539,47 @@ def build_train(device, extra=(), steps: int = 12, model_name: str = "ctunet"):
     return model, step, lr, trees, batches
 
 
-def run_steps(step, lr, trees, batches, device, steps_timed: int, remats=(True, False)):
+def run_steps(step, lr, trees, batches, device, remats=(True, False)):
     """For each setting of ``remats`` (block remat on, off) one warm-up step,
-    then ``steps_timed`` timed steps of each in turns (on, off, off, on,
-    ...): per step its seconds (``StepTimer``: host clock, fenced on the
-    step's metrics) and peak memory (reset before it), launches equal to
-    ``trees[remat]``, a finite loss. Returns the statistics of each setting
-    (the first's at the top level, the others under ``"no_remat"``) and the
-    last batch on the card."""
+    then one checked step of each: launches equal to ``trees[remat]`` and a
+    finite loss at every step, and the checked step's peak memory (reset
+    before it). Returns the numbers of each setting (the first's at the top
+    level, the others under ``"no_remat"``) and the last batch on the
+    card."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
     from hybrid_ctunet_tpu_torch.models.layers import remat_blocks
-    from hybrid_ctunet_tpu_torch.utils import StepTimer
 
-    order = list(remats)
-    for i in range(steps_timed):
-        order += list(remats) if i % 2 else list(reversed(remats))
-    runs = {r: {"times": [], "losses": [], "peaks": [], "counts": {}} for r in remats}
-    for i, remat in enumerate(order):
+    runs = {r: {"losses": []} for r in remats}
+    for i, remat in enumerate(list(remats) * 2):
         image, label = batches[i % len(batches)]
         x = torch.from_numpy(image).to(device)
         y = torch.from_numpy(label).to(device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        timer = StepTimer()
         with remat_blocks(remat):
-            timer.tic()
             metrics = step(x, y, lr)
-            dt = timer.toc(metrics)
+        loss = metrics["loss"].item()
         counts = counted_launches()
         peak = torch.cuda.max_memory_allocated()
-        loss = metrics["loss"].item()
         warm = i < len(remats)
         aux = ", ".join(f"{k} {v.item()!r}" for k, v in metrics.items() if k != "loss")
         log(f"  step {i} remat {'on' if remat else 'off'}{' (warm-up)' if warm else ''}: "
-            f"{dt!r} s, peak {peak} B, loss {loss!r}{f' ({aux})' if aux else ''}")
+            f"peak {peak} B, loss {loss!r}{f' ({aux})' if aux else ''}")
         if not math.isfinite(loss):
             raise AssertionError(f"step {i}: loss {loss}")
         check_launches(f"train step {i} (remat {'on' if remat else 'off'})", counts,
                        [(trees[remat], 1)])
         run = runs[remat]
         run["losses"].append(loss)
-        run["counts"] = counts
-        if not warm:
-            run["times"].append(dt)
-            run["peaks"].append(peak)
-    out = {}
-    for remat, run in runs.items():
-        out[remat] = {"seconds_per_step": run["times"], "mean_s": statistics.mean(run["times"]),
-                      "losses": run["losses"], "peak_mem_bytes": max(run["peaks"]),
-                      "launches_per_step": run["counts"]}
-        log(f"  remat {'on' if remat else 'off'}: timed steps {run['times']!r} s (mean "
-            f"{out[remat]['mean_s']!r}), peak memory {out[remat]['peak_mem_bytes']} B")
+        run["launches_per_step"] = counts
+        run["peak_mem_bytes"] = peak
     first, *rest = remats
     if rest:
-        out[first]["no_remat"] = out[rest[0]]
-    return out[first], (x, y)
+        runs[first]["no_remat"] = runs[rest[0]]
+    return runs[first], (x, y)
 
 
 def remat_check(name, model, step, x, y):
@@ -1602,25 +1627,24 @@ def remat_check(name, model, step, x, y):
             "buffers_equal": buffers_equal, "buffers_moved": moved}
 
 
-def phase_train_steps(device, steps_timed: int = 5):
+def phase_train_steps(device):
     """The full-width CTUNet trained on --synthetic data through the port's
     train step: with block remat on (the default) and off, one warm-up step
-    each and ``steps_timed`` timed ones each in turns (host clock around
-    each, ending in a synchronize), per-step launches equal to the module
-    tree's for the full five-output forward (with remat, K8 and K9 of the
-    wrapped blocks twice), a finite loss at every step, and each step's
-    peak memory; one step's gradients with remat equal to those without
+    and one checked step each (``run_steps``), per-step launches equal to
+    the module tree's for the full five-output forward (with remat, K8 and
+    K9 of the wrapped blocks twice), a finite loss at every step, and the
+    checked step's peak memory; one step's gradients with remat equal to those without
     (``remat_check``); then one more step under ``torch.profiler`` (its
     kernels by device time). Returns the statistics and a batch of 4
     windows of the synthetic data (C6's input)."""
     import torch
 
-    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.utils import profiling
 
     model, step, lr, trees, batches = build_train(device)
-    out, (x, y) = run_steps(step, lr, trees, batches, device, steps_timed)
+    out, (x, y) = run_steps(step, lr, trees, batches, device)
     out["remat_check"] = remat_check("instance norm", model, step, x, y)
-    prof = bench.profile_device(lambda: step(x, y, lr))
+    prof = profiling.profile_device(lambda: step(x, y, lr))
     log(f"  one step under torch.profiler: wall {prof['wall_s']!r} s, kernels "
         f"{prof['kernel_ms']!r} ms, busy {prof['busy_share']!r}")
     log(json.dumps({"train_step_profile": prof}))
@@ -1629,18 +1653,18 @@ def phase_train_steps(device, steps_timed: int = 5):
     return out, x.to(torch.bfloat16)
 
 
-def phase_dropout_batch2(device, steps_timed: int = 2):
+def phase_dropout_batch2(device):
     """8a'. ``--batch_size 2 --dropout_rate 0.2`` (8 crops of 96^3 a step)
     with block remat on, which it needs to fit the card: one warm-up and
-    ``steps_timed`` timed steps, finite losses, launches equal to the
-    tree's, each step's peak memory."""
+    one checked step, finite losses, launches equal to the tree's, the
+    checked step's peak memory."""
     import torch
 
     model, step, lr, trees, batches = build_train(
-        device, ["--dropout_rate", "0.2", "--batch_size", "2"], steps=1 + steps_timed)
+        device, ["--dropout_rate", "0.2", "--batch_size", "2"], steps=2)
     if batches[0][0].shape[0] != 8:
         raise AssertionError(f"batch of {batches[0][0].shape[0]} crops, expected 8")
-    out, _ = run_steps(step, lr, trees, batches, device, steps_timed, remats=(True,))
+    out, _ = run_steps(step, lr, trees, batches, device, remats=(True,))
     del model, step
     torch.cuda.empty_cache()
     return out
@@ -2094,10 +2118,10 @@ def recompute_draws(model, record):
     return len(again)
 
 
-def phase_dropout(device, steps_timed: int = 3):
+def phase_dropout(device):
     """8a. ``--dropout_rate 0.2`` (the paper's CTUNet_ds8_dr0.2): one
-    warm-up and ``steps_timed`` timed steps with block remat on and off in
-    turns, finite losses, launches equal to the tree with the dropout sites
+    warm-up and one checked step with block remat on and off
+    (``run_steps``), finite losses, launches equal to the tree with the dropout sites
     plain (K2, K3, K4 at none) and, with remat, K8 and K9 recomputed; one
     step's gradients with remat equal those without (``remat_check``); a
     step redone at the same (seed, step) draws the same masks, the next
@@ -2109,7 +2133,7 @@ def phase_dropout(device, steps_timed: int = 3):
     from hybrid_ctunet_tpu_torch.cli import factory
 
     model, step, lr, trees, batches = build_train(device, ["--dropout_rate", "0.2"])
-    out, (x, y) = run_steps(step, lr, trees, batches, device, steps_timed)
+    out, (x, y) = run_steps(step, lr, trees, batches, device)
     out["remat_check"] = remat_check("dropout 0.2", model, step, x, y)
     masks = []
     for k in (step.step, step.step, step.step + 1):
@@ -2154,9 +2178,9 @@ def phase_dropout(device, steps_timed: int = 3):
     return out
 
 
-def phase_batchnorm(device, steps_timed: int = 3):
-    """8b. ``--norm_name batch``: one warm-up and ``steps_timed`` timed
-    steps with block remat on and off in turns, finite losses, launches
+def phase_batchnorm(device):
+    """8b. ``--norm_name batch``: one warm-up and one checked step with
+    block remat on and off (``run_steps``), finite losses, launches
     equal to the tree (K8 at no BatchNorm site, K9 recomputed with remat);
     the running buffers move and stay finite; one step from the same
     buffers with remat and without leaves them equal, its gradients equal
@@ -2165,11 +2189,11 @@ def phase_batchnorm(device, steps_timed: int = 3):
     plain version on the model's own activations."""
     import torch
 
-    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.utils import profiling
 
     model, step, lr, trees, batches = build_train(device, ["--norm_name", "batch"])
     before = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_var")}
-    out, (x, y) = run_steps(step, lr, trees, batches, device, steps_timed)
+    out, (x, y) = run_steps(step, lr, trees, batches, device)
     after = model.state_dict()
     moved = sum(not torch.equal(v, after[k]) for k, v in before.items())
     finite = all(torch.isfinite(v).all() for k, v in after.items()
@@ -2180,7 +2204,7 @@ def phase_batchnorm(device, steps_timed: int = 3):
     out["remat_check"] = remat_check("BatchNorm", model, step, x, y)
     if out["remat_check"]["buffers_moved"] != len(list(model.buffers())):
         raise AssertionError("a BatchNorm buffer did not move in the compared step")
-    prof = bench.profile_device(lambda: step(x, y, lr))
+    prof = profiling.profile_device(lambda: step(x, y, lr))
     log(f"  one step under torch.profiler: wall {prof['wall_s']!r} s, kernels "
         f"{prof['kernel_ms']!r} ms, busy {prof['busy_share']!r}")
     log(json.dumps({"batchnorm_step_profile": prof}))
@@ -2305,22 +2329,21 @@ SW_WIDE = 8  # the JAX bench's window batch (bench.py BENCH_SW_CT / BENCH_SW_TU)
 
 
 def phase_measure(device):
-    """9. The measuring layer on the card. (a) The ensemble at 8 windows a
-    chunk: launches per volume equal to the module tree's x 7 CTUNet and 19
-    TUNet chunks, every K1 call of each engine's first and trailing chunk
-    bit-exact, one 8-window chunk of each model with every kernel call held
-    to its plain version, and 2 timed volumes at 8 beside 2 at 4 (in turns
-    4, 8, 8, 4) with the hybrid's MFU at each. (b) ``cli.mfu`` for both models
-    at 4 and 8 windows. (c) ``bench.profile_device`` on a warm volume of each
-    half at 4, its traced kernel records equal to the launch counters. (d)
+    """9. The ensemble at 8 windows a chunk, the traced records and the NaN
+    checks. (a) At 8 windows a chunk: launches per volume equal to the
+    module tree's x 7 CTUNet and 19 TUNet chunks, every K1 call of each
+    engine's first and trailing chunk bit-exact, one 8-window chunk of each
+    model with every kernel call held to its plain version. (b)
+    ``utils.profiling.profile_device`` on a warm volume of each half at 4,
+    its traced kernel records equal to the launch counters. (c)
     ``enable_nan_checks``: a NaN in one window of a TUNet chunk raises
     ``FloatingPointError`` naming a module; with the checks off the chunk
     runs."""
     import torch
 
     from hybrid_ctunet_tpu_torch import kernels
-    from hybrid_ctunet_tpu_torch.cli import bench, mfu
-    from hybrid_ctunet_tpu_torch.utils import enable_nan_checks, flops
+    from hybrid_ctunet_tpu_torch.cli import bench
+    from hybrid_ctunet_tpu_torch.utils import enable_nan_checks, profiling
 
     t0 = time.perf_counter()
     ctunet, tunet = bench.build_ctunet(SEED, device), bench.build_tunet(SEED, device)
@@ -2352,37 +2375,17 @@ def phase_measure(device):
         tree = tree_launches(model, res_only=res_only)
         tree["scatter_add_windows"] = 0
         eval_chunk(f"{name}, {SW_WIDE} windows", model, device, tree, SW_WIDE, res_only)
-    useful = bench.useful_flops_per_volume(ct8, tu8)
-    timed = {CHUNK: [], SW_WIDE: []}
-    for sw in (CHUNK, SW_WIDE, SW_WIDE, CHUNK):
-        timed[sw].append(bench.time_hybrid(*engines[sw], volume, reps=1))
-    hybrid = {}
-    for sw, runs in timed.items():
-        secs = [r["seconds_per_volume"][0] for r in runs]
-        hybrid[sw] = {"seconds_per_volume": secs,
-                      "ctunet_seconds_per_volume": [r["ctunet_seconds_per_volume"][0] for r in runs],
-                      "tunet_seconds_per_volume": [r["tunet_seconds_per_volume"][0] for r in runs],
-                      "peak_mem_bytes": max(r["peak_mem_bytes"] for r in runs),
-                      "mfu": useful / (statistics.mean(secs) * flops.H100_BF16_FLOP_PER_S)}
-        log(f"  sw {sw}: hybrid {secs!r} s (CTUNet {hybrid[sw]['ctunet_seconds_per_volume']!r}, "
-            f"TUNet {hybrid[sw]['tunet_seconds_per_volume']!r}), peak {hybrid[sw]['peak_mem_bytes']} "
-            f"B; {useful / 1e12!r} useful TFLOP a volume -> MFU {hybrid[sw]['mfu']!r}")
-
-    log("  (b) cli.mfu")
-    reports = [mfu.report(which, sw, model=model)
-               for sw in (CHUNK, SW_WIDE) for which, model in (("tunet", tunet), ("ctunet", ctunet))]
-
-    log("  (c) profile_device, traced kernel records against the launch counters")
+    log("  (b) profile_device, traced kernel records against the launch counters")
     profiles = {}
     for name, engine in zip(("ctunet", "tunet"), engines[CHUNK]):
-        prof = bench.profile_half(engine, volume)
+        prof = profiling.profile_device(lambda: bench.segment(engine, volume))
         profiles[name] = {k: prof[k] for k in ("wall_s", "kernel_ms", "busy_share",
                                                "kernel_records")}
         log(f"  {name} half: wall {prof['wall_s']!r} s, kernels {prof['kernel_ms']!r} ms, busy "
             f"{prof['busy_share']!r}; records equal to launches {prof['kernel_records']}")
         log(json.dumps({f"{name}_half_profile": prof}))
 
-    log("  (d) enable_nan_checks")
+    log("  (c) enable_nan_checks")
     x = bench.make_volume(SEED + 7, (CHUNK, *bench.ROI), device)[0].to(torch.bfloat16)
     x[1, 40, 40, 40, 0] = float("nan")
     enable_nan_checks(True)
@@ -2402,26 +2405,24 @@ def phase_measure(device):
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     log(f"  phase 9: {wall!r} s")
-    return {"sw8_launches": counts8, "hybrid_by_sw": hybrid, "useful_tflop_per_volume": useful / 1e12,
-            "mfu_reports": reports, "profiles": profiles, "nan_check": caught, "wall_s": wall}
+    return {"sw8_launches": counts8, "profiles": profiles, "nan_check": caught, "wall_s": wall}
 
 
 SINGLE_FILES = {"tunet": "model_vit.pt", "cunet": "model_res.pt",  # trainer.py's names
                 "swin_unetr": "model_vit.pt"}
 
 
-def phase_single_steps(device, model_name: str, steps_timed: int = 3):
+def phase_single_steps(device, model_name: str):
     """10a. The full-width TUNet or CUNet (main_C_TUNet.py ``--model_name``)
     through the port's train step on --synthetic data, batch 1 x 4 crops of
-    96^3, bf16, AdamW: a warm-up and ``steps_timed`` timed steps with block
-    remat on and off in turns (``run_steps``: launches equal to the module
-    tree's, finite losses, each step's peak), then one step's gradients
-    with remat against without (``remat_check``)."""
+    96^3, bf16, AdamW: a warm-up and one checked step with block remat on
+    and off (``run_steps``: launches equal to the module tree's, finite
+    losses, the checked step's peak), then one step's gradients with remat
+    against without (``remat_check``)."""
     import torch
 
-    model, step, lr, trees, batches = build_train(device, steps=2 + 2 * steps_timed,
-                                                  model_name=model_name)
-    out, (x, y) = run_steps(step, lr, trees, batches, device, steps_timed)
+    model, step, lr, trees, batches = build_train(device, model_name=model_name)
+    out, (x, y) = run_steps(step, lr, trees, batches, device)
     out["remat_check"] = remat_check(model_name, model, step, x, y)
     del model, step
     torch.cuda.empty_cache()
@@ -2623,7 +2624,9 @@ def phase_swin(device, work):
     launches at the new widths, the traced records reconciled with the
     counters, the kernel model against the plain model, the chunk's time
     and peak memory; (d) a 256 x 256 x 128 volume through the engine at sw
-    4, timed; (e) train steps (1 x 4 crops, remat on and off) and
+    4, its launches equal to the module tree's x 13 chunks, finite logits
+    and the mask in range; (e) train steps (1 x 4 crops, remat on and off,
+    ``run_steps``) and
     ``train_main c_tunet --model_name swin_unetr --feature_size 48``; (f)
     ``test_single`` on the trained model's ``model_vit.pt``."""
     import torch
@@ -2635,6 +2638,7 @@ def phase_swin(device, work):
     from hybrid_ctunet_tpu_torch.models import SwinUNETR
     from hybrid_ctunet_tpu_torch.models.layers import remat_blocks
     from hybrid_ctunet_tpu_torch.ops import attention, norm
+    from hybrid_ctunet_tpu_torch.utils import profiling
 
     bf = torch.bfloat16
     gen = torch.Generator(device=device)
@@ -2771,7 +2775,7 @@ def phase_swin(device, work):
             yp = model(xs)[0]
         rel = errors(y, yp)[1]
         log(f"  kernels against the plain model: rel L2 {rel!r}")
-        prof = bench.profile_device(lambda: model(xs))  # raises unless the records reconcile
+        prof = profiling.profile_device(lambda: model(xs))  # raises unless the records reconcile
         log(f"  traced records reconcile with the counters: {prof['kernel_records']}")
         torch.cuda.reset_peak_memory_stats()
         chunk_ms = cuda_time_ms(lambda: model(xs), reps=3, calls=5)
@@ -2784,20 +2788,20 @@ def phase_swin(device, work):
         engine = bench.make_engine(model, bench.ROI, 0.5, CHUNK)
         volume = bench.make_volume(SEED, device=device)
         kernels.reset_launch_counts()
-        stats = bench.time_volumes(engine, volume, reps=3)
+        logits, mask = bench.segment(engine, volume)
         vol_counts = counted_launches()
         _, chunks = n_chunks(engine)
-        check_launches("Swin-UNETR volume (4 with the warm-up)", vol_counts, [(tree, chunks * 4)])
-        log(f"  volume: {stats!r}")
-        out["volume"] = {k: stats[k] for k in stats if k != "logits"}
-    del model, engine, volume, y, yp, xs
+        check_launches("Swin-UNETR volume", vol_counts, [(tree, chunks)])
+        check_map("Swin-UNETR logits", logits)
+        check_mask(mask)
+        out["volume"] = {"launches": vol_counts}
+    del model, engine, volume, y, yp, xs, logits, mask
     torch.cuda.empty_cache()
 
     log("  (e) train steps and train_main c_tunet --model_name swin_unetr")
     extra = ("--feature_size", "48")
-    model, step, lr, trees, batches = build_train(device, extra, steps=6,
-                                                  model_name="swin_unetr")
-    steps_out, _ = run_steps(step, lr, trees, batches, device, 2)
+    model, step, lr, trees, batches = build_train(device, extra, model_name="swin_unetr")
+    steps_out, _ = run_steps(step, lr, trees, batches, device)
     out["train_steps"] = step_stats(steps_out)
     del model, step
     torch.cuda.empty_cache()
@@ -2827,7 +2831,7 @@ def phase_swin(device, work):
 def step_stats(run):
     """A train phase's numbers for the summary line: with remat, and under
     ``no_remat`` and ``remat_check`` where the phase has them."""
-    keys = ("seconds_per_step", "mean_s", "losses", "peak_mem_bytes")
+    keys = ("losses", "peak_mem_bytes")
     out = {k: run[k] for k in keys}
     if "no_remat" in run:
         out["no_remat"] = {k: run["no_remat"][k] for k in keys}
@@ -2848,7 +2852,7 @@ def main() -> int:
     start = time.perf_counter()
     device = torch.device("cuda", 0)
     log("phase 1: device")
-    card = bench.device_line()
+    card = device_line()
     log(f"  {card}")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     bench.set_precision_flags()
@@ -2867,10 +2871,10 @@ def main() -> int:
     work = work_dir.name
 
     log("phase 4: TUNet sliding-window slice")
-    tunet, tu_engine, volume, tu_stats = phase_tunet(device, work)
+    tunet, tu_engine, volume = phase_tunet(device, work)
 
     log("phase 5: Hybrid-CTUNet ensemble")
-    hy_stats, counts = phase_hybrid(tunet, tu_engine, volume, device)
+    counts = phase_hybrid(tunet, tu_engine, volume, device)
     del tunet, tu_engine, volume
     torch.cuda.empty_cache()
 
@@ -2897,7 +2901,7 @@ def main() -> int:
     ddp = phase_ddp(device, work, ev.pop("argv"))
     log(f"  phase 8: {time.perf_counter() - t8!r} s")
 
-    log("phase 9: the measuring layer (sw 8, MFU, traced records, NaN checks)")
+    log("phase 9: the ensemble at sw 8, traced records, NaN checks")
     meas = phase_measure(device)
 
     log("phase 10: main_C_TUNet.py's workflow (TUNet and CUNet training, test_single, "
@@ -2935,11 +2939,6 @@ def main() -> int:
             "eval_final_trained_launches": single["test_final_trained"]["launches"][info.name],
         })
     log(json.dumps({
-        "hybrid": {k: hy_stats[k] for k in ("seconds_per_volume", "ctunet_seconds_per_volume",
-                                            "tunet_seconds_per_volume", "volumes_per_min",
-                                            "peak_mem_bytes")},
-        "tunet_slice": {k: tu_stats[k] for k in ("seconds_per_volume", "volumes_per_min",
-                                                 "peak_mem_bytes")},
         "train": {**step_stats(train), "grad_worst_rel_l2": grads, "cli_wall_s": cli["wall_s"]},
         "c6_trained_check": c6,
         "eval": {name: {k: v for k, v in run.items() if k != "launches"}

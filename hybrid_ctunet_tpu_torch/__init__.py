@@ -29,14 +29,18 @@ port imports ``torch`` and numpy only, never ``jax`` or ``flax``.
                 table of kernels with their launch counts, and the check of
                 a trace's kernel records against those counts.
 - ``utils``   — weight carry-over from the JAX parameter trees, random init,
-                scalar logging; tracing, step timing and NaN checks
-                (``profiling``); the useful FLOPs of a chunk (``flops``).
-- ``cli``     — ``bench``: the Hybrid-CTUNet ensemble on one volume;
-                ``mfu``: useful FLOPs and MFU of the bench's models;
+                scalar logging; tracing (a call's kernel records held to the
+                launch counters), step timing, NaN checks and the program's
+                spans (``profiling``); the useful FLOPs of a chunk
+                (``flops``).
+- ``cli``     — ``bench``: the Hybrid-CTUNet ensemble's constructors (models,
+                engines, the softmax-mean ensemble);
                 ``train_main``: the reference's training entry point;
-                ``test_main``: its evaluation entry points;
-                ``kernel_variants``: kernel design variants timed on the
-                card.
+                ``test_main``: its evaluation entry points.
+
+The port is measured by the benchmark beside it (``python3 -m
+benchmark.run``, ``BENCHMARK.json``) and checked on the card by
+``chip_smoke.py``.
 
 Public functions keep the JAX package's channels-last (NDHWC) layout.
 """

@@ -22,7 +22,6 @@ from torch.utils.flop_counter import flop_registry
 
 from .. import kernels
 
-H100_BF16_FLOP_PER_S = 989e12  # NVIDIA H100 SXM, dense bf16 tensor-core peak at 700 W
 aten = torch.ops.aten
 
 

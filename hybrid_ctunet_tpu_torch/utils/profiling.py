@@ -2,6 +2,10 @@
 
 - ``trace(logdir, device)`` — context manager around ``torch.profiler``
                               writing a TensorBoard-loadable trace.
+- ``profile_device(fn)``    — one warm call of ``fn`` traced on the card,
+                              its kernels by device time, each of the
+                              port's kernels' traced records held equal to
+                              its launch counter.
 - ``enable_nan_checks``     — debug mode that raises at the first module
                               whose output holds a NaN or an infinity, and
                               at the first backward function that makes one
@@ -28,6 +32,8 @@ from typing import Deque, Dict, List, Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from .. import kernels
+
 _NAN_HOOKS = []  # the global forward hooks while NaN checks are on
 _RUNNING = []  # modules whose forward is running, outermost first
 
@@ -52,6 +58,55 @@ def trace(logdir: Optional[str] = None, device=None):
         yield prof
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+
+# Device work at the head of a trace, before the traced call. Once a process
+# has run for some minutes, the profiler loses the first device records after
+# a trace starts (on an H100 with torch 2.11 and CUDA 12.8, in a process that
+# ran Swin-UNETR chunks in a loop: none at 290 s, 23 at 306 s, one more every
+# ~15 s after; torch's kernels as well as the port's; an idle 50 ms before the
+# call did not help). These spin kernels (~0.1 ms each) take the loss.
+_LEAD_IN_KERNELS = 512
+_LEAD_IN_CYCLES = 200_000
+
+
+def profile_device(fn) -> Dict:
+    """``fn()`` once to warm up, then once under :func:`trace` after the
+    lead-in kernels: wall seconds, summed device kernel time, the 30
+    kernels with the most device time, and the traced records of each of
+    the port's kernels, which must equal its launches in the traced call
+    (``kernels.reconcile`` raises otherwise: no partial table). The lead-in
+    is left out of every number."""
+    fn()
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    with trace() as prof:
+        for _ in range(_LEAD_IN_KERNELS):
+            torch.cuda._sleep(_LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+    traced = kernels.traced_counts(ev.name for ev in prof.events() if _on_device(ev))
+    kernels.reconcile(traced, launched)
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and _on_device(ev) and "spin_kernel" not in ev.key:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    kernel_ms = sum(r[1] for r in rows)
+    return {"wall_s": wall, "kernel_ms": kernel_ms, "busy_share": kernel_ms / 1e3 / wall,
+            "kernel_records": traced,
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:30]]}
+
+
+def _on_device(ev) -> bool:
+    return getattr(ev, "device_type", None) is not None and "CUDA" in str(ev.device_type)
 
 
 def _enter(module, args):

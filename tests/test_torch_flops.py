@@ -18,7 +18,6 @@ from hybrid_ctunet_tpu import flags
 from hybrid_ctunet_tpu.models import layers as jlayers
 from hybrid_ctunet_tpu.models.ctunet import CTUNet as JCTUNet
 from hybrid_ctunet_tpu.models.tunet import TUNet as JTUNet
-from hybrid_ctunet_tpu_torch.cli import bench, mfu
 from hybrid_ctunet_tpu_torch.models import CTUNet, TUNet
 from hybrid_ctunet_tpu_torch.utils import flops
 
@@ -135,13 +134,3 @@ def test_count_needs_the_meta_device():
     with pytest.raises(ValueError, match="meta"):
         flops.count_model_flops(TUNet(dtype=torch.float32, **TINY), 1, roi=ROI)
 
-
-def test_mfu_cli_counts_without_a_card(capsys):
-    """``cli.mfu --no-measure`` prints the full-width TUNet's count on the
-    meta device; measuring needs a card, as the bench does."""
-    assert mfu.main(["tunet", "--no-measure"]) == 0
-    out = capsys.readouterr().out
-    assert "GF/window" in out and "vit_decoder0" in out
-    if not torch.cuda.is_available():
-        assert mfu.main(["tunet"]) == 1
-        assert bench.main([]) == 1

@@ -2,11 +2,17 @@
 ``hybrid_ctunet_tpu_torch`` (the training, data and CLI modules with them),
 runs the TINY ensemble (CTUNet depth 50 and TUNet sliding-window inference,
 softmax-mean, argmax, through cli/bench.py's functions) and one TINY TUNet
-train step with its scalar log, then checks sys.modules."""
+train step with its scalar log, then checks sys.modules. And every name the
+benchmark's files import from the port exists in it (read from their
+source, not imported)."""
+import ast
+import importlib
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 from torch_threads import THREADS, two_threads  # noqa: F401 (autouse: two torch threads)
 
@@ -56,3 +62,27 @@ def test_port_imports_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "loaded: []" in proc.stdout
+
+
+# the benchmark's files that import the port
+BENCHMARK_FILES = ("benchmark/drivers/ensemble.py", "benchmark/drivers/single.py",
+                   "benchmark/drivers/train.py", "benchmark/metrics/step.host_ms.train.py")
+
+
+@pytest.mark.parametrize("path", BENCHMARK_FILES)
+def test_benchmark_imports_exist_in_the_port(path):
+    tree = ast.parse((REPO / path).read_text(), path)
+    imports = [(node.module, alias.name) for node in ast.walk(tree)
+               if isinstance(node, ast.ImportFrom) and node.level == 0
+               and node.module.split(".")[0] == "hybrid_ctunet_tpu_torch"
+               for alias in node.names]
+    assert imports, f"{path} imports nothing from the port"
+    missing = []
+    for module, name in imports:
+        mod = importlib.import_module(module)
+        if not hasattr(mod, name):
+            try:
+                importlib.import_module(f"{module}.{name}")
+            except ModuleNotFoundError:
+                missing.append(f"{module}.{name}")
+    assert not missing, f"{path} imports names the port does not have: {missing}"
